@@ -4,18 +4,29 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from voxtracer_torch/csrc, holds each kernel
-against its plain PyTorch version at the shapes of the main path, renders
-the 1080p 4-bounce path-traced forward frame of the asset-free monu-like
-scene and the glass + smoke media scene through the port's entry point
-(render_tiled), shows from the launch counters that the frame went
-through every kernel, and compares a whole image rendered through the
-kernels with one rendered through the plain versions.
+against its plain PyTorch version at the shapes of the main path, and
+drives the port's two halves of the main path through its entry points:
+
+* the forward: the 1080p 4-bounce path-traced frame of the asset-free
+  monu-like scene and the glass + smoke media scene (render_tiled);
+* the gradient step: the relaxed-march gradient over the bench's
+  (2,10)-step span bins at edge 4 in 2 bands (diff.train.binned_grads),
+  timed inside the fused step (forward frame + gradient, as bench.py
+  times it), and 3 Adam steps of the trainer (diff.train.make_train_step).
+
+The launch counters show that each path went through its kernels, and a
+whole image and a whole gradient through the kernels are compared with
+ones through the plain versions.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
-version takes torch.rsqrt); lookup rows identical; whole images: at most
-0.1% of pixels off by more than 1e-3.  Kernel and plain times are CUDA
-event medians of 5 runs after one warm-up.
+version takes torch.rsqrt); lookup rows identical; lookup backward per
+entry within 1e-5 * (sum of |ct| over that entry's rows) + 1e-6 (both
+sides add with atomics, in no fixed order); forward images: at most 0.1%
+of pixels off by more than 1e-3; gradients: relative L2 <= 1e-4 on both
+parameters and relaxed images within 1e-5.  Kernel and plain times are
+CUDA-event medians of 5 runs after one warm-up; step times are host
+clocks around synchronised runs, 1 warm-up and 3 reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -27,6 +38,7 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -86,6 +98,7 @@ def main() -> int:
     from voxtracer_torch.core import mathx
     from voxtracer_torch.core.rng import fold_in, hash_uniform, make_key
     from voxtracer_torch.core.types import GLASS, SMOKE_LOW_DENSITY, SMOKE_PLAYER
+    from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, traverse
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
     from voxtracer_torch.kernels.dda_occ import traverse_occ
@@ -130,12 +143,20 @@ def main() -> int:
     big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     results = []
 
-    def report(kname, source, replaces, err, ms, plain_ms):
+    def report(kname, source, replaces, err, ms, plain_ms, phase=3):
         results.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces, launches=0, max_abs_err=err,
                             ms=ms, plain_ms=plain_ms))
-        log(f"[3] {kname}: max_abs_err {err:.3g}; kernel {ms:.3f} ms, "
+        log(f"[{phase}] {kname}: max_abs_err {err:.3g}; kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms ({smi})")
+
+    def reset_counts():
+        for c in (traverse.launches, lookup.launches):
+            for kk in c:
+                c[kk] = 0
+
+    def counts():
+        return dict(traverse.launches, **lookup.launches)
 
     def near(fn):
         return fn(*vargs, o, d, big, ones, ven, vols.occ, vols.bricksize, mode="nearest")
@@ -228,17 +249,16 @@ def main() -> int:
            cuda_ms(lambda: lookup.lookup_rows(mtab, idx)),
            cuda_ms(lambda: lookup.lookup_rows_plain(mtab, idx)))
 
-    # ---- 4 + 5. the main path, counted: 1080p monu-like, then media
-    for c in (traverse.launches, lookup.launches):
-        for kk in c:
-            c[kk] = 0
+    # ---- 4 + 5. the forward half of the main path, counted: 1080p
+    # monu-like, then media
+    reset_counts()
     img = integrator.render_tiled(scene, cfg, key, 1, 1)
     torch.cuda.synchronize()
     mean = float(img.mean())
     check(tuple(img.shape) == (1080, 1920, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(img).all()), "1080p image has non-finite values")
     check(0.02 < mean < 10.0, f"1080p image mean {mean}")
-    after_monu = dict(traverse.launches, **lookup.launches)
+    after_monu = counts()
     for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
         check(after_monu[kk] > 0, f"{kk} not launched by the 1080p frame")
     log(f"[4] 1080p path frame: mean {mean:.4f}; launches {after_monu}")
@@ -246,11 +266,10 @@ def main() -> int:
     mimg = integrator.render_tiled(mscene, mcfg, key, 1, 1)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(mimg).all()), "media image has non-finite values")
-    counts = dict(traverse.launches, **lookup.launches)
-    check(counts["exit_march"] > 0, "exit_march not launched by the media frame")
-    log(f"[5] media 256x256 path frame: mean {float(mimg.mean()):.4f}; launches {counts}")
-    for r in results:
-        r["launches"] = counts[r["name"]]
+    fwd_counts = counts()
+    check(fwd_counts["exit_march"] > 0, "exit_march not launched by the media frame")
+    log(f"[5] media 256x256 path frame: mean {float(mimg.mean()):.4f}; "
+        f"launches {fwd_counts}")
 
     # forward time: 1 warm-up + 3 reps of the full frame
     times = []
@@ -287,7 +306,136 @@ def main() -> int:
     log(f"[6] 256x128 kernels vs plain: max diff {float(diff.max()):.3g}, "
         f"{frac:.4%} of pixels differ by more than 1e-3")
 
-    # ---- 7. results
+    # ---- 7. the gradient step's precompute, then K4's backward against its
+    # plain version at the step's shapes
+    t0 = time.perf_counter()
+    params = volumetric.params_from_scene(scene)
+    plan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3), device=dev),
+                              bin_steps=(2, 10), edges=(4.0,), tiles=2, span_steps=1)
+    core_rows = max(b.o.shape[0] for b in plan.bins if b.steps == 10)
+    log(f"[7] 1080p bins (2 bands, (2,10) steps at edge 4), k = {plan.k} of "
+        f"{vols.n}: " + ", ".join(f"{b.n_active} rays @ {b.steps} steps"
+                                   f"{' + clamp' if b.clamp else ''}" for b in plan.bins)
+        + f"; precompute {time.perf_counter() - t0:.1f} s")
+
+    def bwd_err(ct, idx, k):
+        got = lookup.lookup_rows_bwd(ct, idx, k)
+        want = lookup.lookup_rows_bwd_plain(ct, idx, k)
+        err = (got - want).abs()
+        bound = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
+        check(bool((err <= bound).all()), f"K4 backward [{k}, {ct.shape[1]}] out of tolerance")
+        check(float(want.abs().max()) > 0, "K4 backward: an all-zero cotangent sum")
+        return float(err.max())
+
+    # albedo: ~10 core steps x the band's active rays, material ids as the
+    # march's cell column gives them (sampled cells), then out-of-range ids
+    n_alb = 10 * core_rows
+    cells = torch.randint(0, vols.grids.numel(), (n_alb,), generator=gen, device=dev)
+    idx_m = vols.grids.reshape(-1)[cells].to(torch.int32)
+    idx_o = torch.randint(-8, 264, (n_alb,), generator=gen, device=dev, dtype=torch.int32)
+    ct3 = torch.randn((n_alb, 3), generator=gen, device=dev)
+    # brick sigma: one brick segment of the core bin over the [V * M^3, 1] table
+    k_b = vols.n * vols.occ.shape[2]
+    idx_b = torch.randint(-8, k_b + 8, (core_rows,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    ct1 = torch.randn((core_rows, 1), generator=gen, device=dev)
+    err7 = max(bwd_err(ct3, idx_m, 256), bwd_err(ct3, idx_o, 256), bwd_err(ct1, idx_b, k_b))
+    for what, ct_, idx_, k_ in (("albedo [256,3]", ct3, idx_m, 256),
+                                ("brick sigma", ct1, idx_b, k_b)):
+        ci = idx_.long().clamp(0, k_ - 1)
+        log(f"    K4 backward, {what} x {idx_.shape[0]} rows: kernel "
+            f"{cuda_ms(lambda: lookup.lookup_rows_bwd(ct_, idx_, k_)):.3f} ms, plain (f64 "
+            f"index_add_) {cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct_, idx_, k_)):.3f} ms, "
+            f"f32 index_add_ {cuda_ms(lambda: ct_.new_zeros((k_, ct_.shape[1])).index_add_(0, ci, ct_)):.3f} ms")
+    report("lookup_rows_bwd", "voxtracer_torch/csrc/lookup.cu",
+           "voxtracer/diff/volumetric.py:95", err7,
+           cuda_ms(lambda: lookup.lookup_rows_bwd(ct3, idx_m, 256)),
+           cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct3, idx_m, 256)), phase=7)
+
+    # ---- 8. the gradient half of the main path, counted, then the fused
+    # step (forward frame + gradient) timed
+    reset_counts()
+    loss, grads = train.binned_grads(params, scene, plan)
+    torch.cuda.synchronize()
+    grad_counts = counts()
+    for kk in ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"):
+        check(grad_counts[kk] > 0, f"{kk} not launched by the 1080p gradient")
+    for f in ("density_logits", "albedo_table"):
+        gf = getattr(grads, f)
+        check(bool(torch.isfinite(gf).all()), f"{f} gradient has non-finite values")
+        check(float(gf.abs().max()) > 0, f"{f} gradient is all zero")
+    log(f"[8] 1080p gradient: loss {float(loss):.6f}, |d density| {float(grads.density_logits.norm()):.4g}, "
+        f"|d albedo| {float(grads.albedo_table.norm()):.4g}; launches {grad_counts}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train.binned_grads(params, scene, plan)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[8] binned gradient alone (after the counted run as warm-up): median "
+        f"{statistics.median(times):.1f} ms, min {min(times):.1f} ms, spread "
+        f"{max(times) - min(times):.1f} ms ({smi}); reps {times}")
+    torch.cuda.reset_peak_memory_stats()
+    train.fused_step(params, scene, cfg, fold_in(key, 10), plan)
+    torch.cuda.synchronize()
+    times = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        img_mean, _ = train.fused_step(params, scene, cfg, fold_in(key, 11 + rep), plan)
+        float(img_mean)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[8] fused step 1920x1080 (forward frame + binned gradient): median {med:.1f} ms, "
+        f"min {min(times):.1f} ms, spread {max(times) - min(times):.1f} ms "
+        f"-> {n / med / 1e3:.3f} Mrays/s fwd+bwd; peak memory {peak / 2**30:.2f} GiB "
+        f"({peak} bytes) ({smi}); reps {times}")
+
+    # ---- 9. one gradient through the kernels vs through the plain versions
+    sparams = volumetric.params_from_scene(sscene)
+    splan = train.prepare_bins(sscene, scfg, torch.zeros((scfg.height, scfg.width, 3), device=dev))
+
+    def grad_and_image():
+        _, g = train.binned_grads(sparams, sscene, splan)
+        return g, volumetric.render_diff(sparams, sscene, scfg, 10, k=splan.k, span_steps=1)
+
+    ga, ia = grad_and_image()
+    swapped = (volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd)
+    volumetric.traverse = traverse_occ
+    lookup.lookup_rows, lookup.lookup_rows_bwd = lookup.lookup_rows_plain, lookup.lookup_rows_bwd_plain
+    try:
+        gb, ib = grad_and_image()
+    finally:
+        volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd = swapped
+    rel = {}
+    for f in ("density_logits", "albedo_table"):
+        a, b = getattr(ga, f), getattr(gb, f)
+        check(float(b.abs().max()) > 0, f"plain {f} gradient is all zero")
+        rel[f] = float((a - b).norm() / b.norm())
+        check(rel[f] <= 1e-4, f"{f} gradient: kernels vs plain relative L2 {rel[f]}")
+    idiff = float((ia - ib).abs().max())
+    check(idiff <= 1e-5, f"relaxed image: kernels vs plain max diff {idiff}")
+    log(f"[9] 256x128 gradient kernels vs plain: relative L2 density {rel['density_logits']:.3g}, "
+        f"albedo {rel['albedo_table']:.3g}; relaxed image max diff {idiff:.3g}")
+
+    # ---- 10. the trainer: 3 Adam steps at 1080p on the union-span march
+    step, init = train.make_train_step(cfg, n_steps=10, lr=1e-2, k=plan.k, span_steps=1)
+    tparams = volumetric.params_from_scene(scene)
+    opt = init(tparams)
+    zero = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    losses, times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tparams, opt, tl = step(tparams, opt, scene, zero)
+        losses.append(float(tl))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"trainer losses {losses}")
+    log(f"[10] trainer 1920x1080, 3 Adam steps: losses {losses}; step ms {times} ({smi})")
+
+    # ---- results
+    for r in results:
+        r["launches"] = fwd_counts[r["name"]] + grad_counts[r["name"]]
     log(json.dumps({"kernels": results}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the port's forward frame goes, on one GPU.
+"""Where the time of the port's forward frame or gradient step goes, on one GPU.
 
-    python scripts/torch_profile_frame.py [--width 1920 --height 1080 --bounces 4]
+    python scripts/torch_profile_frame.py [--step frame|grad|fused]
+                                          [--width 1920 --height 1080 --bounces 4]
 
-Renders the asset-free monu-like scene through render_tiled under
-torch.profiler after two warm-up frames, then prints the device time by
-kernel (top 25), the share of device time spent in the hand-written
-kernels, and the device busy share of the frame's wall time.  The chrome
-trace goes to --trace (default out/torch_frame_trace.json).
+Runs one step on the asset-free monu-like scene under torch.profiler after
+two warm-up steps: "frame" renders the path-traced frame (render_tiled),
+"grad" takes the relaxed-march gradient over the bench's (2,10)-step span
+bins at edge 4 in 2 bands (diff.train.binned_grads), "fused" does both
+(diff.train.fused_step).  Prints the device time by kernel (top 25), the
+share of device time spent in the hand-written kernels, and the device
+busy share of the step's wall time.  The chrome trace goes to --trace
+(default out/torch_<step>_trace.json).
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from voxtracer_torch.core.rng import fold_in, make_key  # noqa: E402
+from voxtracer_torch.diff import train  # noqa: E402
+from voxtracer_torch.diff.volumetric import params_from_scene  # noqa: E402
 from voxtracer_torch.render.integrator import render_tiled  # noqa: E402
 from voxtracer_torch.scene.presets import monu_like_path  # noqa: E402
 
-OURS = ("traverse_kernel", "exit_kernel", "lookup_kernel")
+OURS = ("traverse_kernel", "exit_kernel", "lookup_kernel", "lookup_bwd_kernel")
 
 
 def main() -> None:
@@ -35,19 +41,33 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--bounces", type=int, default=4)
-    ap.add_argument("--trace", default="out/torch_frame_trace.json")
+    ap.add_argument("--step", choices=("frame", "grad", "fused"), default="frame")
+    ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     scene, cfg = monu_like_path(args.width, args.height, bounces=args.bounces)
     scene = scene.to("cuda")
     key = make_key(0)
+    if args.step != "frame":
+        params = params_from_scene(scene)
+        plan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3),
+                                                          device="cuda"))
+
+    def run(i):
+        if args.step == "frame":
+            render_tiled(scene, cfg, fold_in(key, i), 1, 1)
+        elif args.step == "grad":
+            train.binned_grads(params, scene, plan)
+        else:
+            train.fused_step(params, scene, cfg, fold_in(key, i), plan)
+
     for i in range(2):
-        render_tiled(scene, cfg, fold_in(key, i), 1, 1)
+        run(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_tiled(scene, cfg, fold_in(key, 2), 1, 1)
+        run(2)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel events only: the aten ops that launched them carry the same
@@ -58,14 +78,15 @@ def main() -> None:
     total = sum(e.self_device_time_total for e in events)
     ours = sum(e.self_device_time_total for e in events
                if any(name in e.key for name in OURS))
-    print(f"frame wall {wall_us / 1e3:.2f} ms (profiled); device time "
+    print(f"{args.step} wall {wall_us / 1e3:.2f} ms (profiled); device time "
           f"{total / 1e3:.2f} ms = {total / wall_us:.1%} busy; hand-written "
           f"kernels {ours / 1e3:.3f} ms = {ours / max(total, 1):.1%} of device time")
     print(f"{'device us':>10} {'calls':>6}  kernel")
     for e in events[:25]:
         print(f"{e.self_device_time_total:10.0f} {e.count:6d}  {e.key[:100]}")
-    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(args.trace)
+    trace = args.trace or f"out/torch_{args.step}_trace.json"
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
 
 
 if __name__ == "__main__":

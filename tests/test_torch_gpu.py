@@ -3,7 +3,11 @@
 Each test builds the kernels (nvcc, csrc/) on first use, launches one on
 CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
-lookup rows identical.  Without a CUDA device every test skips: the
+lookup rows identical, the lookup's backward per entry within
+1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
+atomics, in no fixed order), and a whole relaxed-march gradient through
+the kernels within relative L2 1e-4 of one through the plain versions.
+Without a CUDA device every test skips: the
 kernels have no CPU mode.  This file imports neither JAX nor the JAX
 package, so it runs on a machine with the card and PyTorch alone:
 
@@ -15,10 +19,12 @@ import pytest
 import torch
 
 from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
+from voxtracer_torch.diff import train, volumetric
 from voxtracer_torch.kernels import lookup, traverse
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
+from voxtracer_torch.scene.presets import monu_like_path
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -126,3 +132,80 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         traverse.traverse(*vargs, o, d, tl.cpu(), act, ven, occ, bsz)
     with pytest.raises(ValueError):
         lookup.lookup_rows(torch.zeros((256, 6), device=cuda), torch.zeros(4, device=cuda))
+    ct = torch.zeros((4, 3), device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for bad in ((ct.double(), idx, 256), (ct, idx.long(), 256), (ct, idx[:3], 256),
+                (ct.t().contiguous().t(), idx, 256), (ct, idx.cpu(), 256),
+                (ct[:, :1].contiguous(), idx, 64 * 1024)):  # 256 KB: past any block
+        with pytest.raises(ValueError):
+            lookup.lookup_rows_bwd(*bad)
+
+
+def _hold_bwd(ct, idx, k):
+    got = lookup.lookup_rows_bwd(ct, idx, k)
+    want = lookup.lookup_rows_bwd_plain(ct, idx, k)
+    bound = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= bound).all())
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.parametrize("k,c,lo,hi", [(256, 3, 0, 16), (256, 3, -8, 264), (2048, 1, -8, 2056)])
+def test_lookup_bwd_kernel_matches_plain(cuda, k, c, lo, hi):
+    """Albedo rows (few distinct ids, as the march's material column gives
+    them, then out-of-range ids) and brick-sigma rows."""
+    gen = torch.Generator(device=cuda).manual_seed(k + lo)
+    n = 1_000_003
+    idx = torch.randint(lo, hi, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    ct = torch.randn((n, c), generator=gen, device=cuda)
+    before = lookup.launches["lookup_rows_bwd"]
+    _hold_bwd(ct, idx, k)
+    assert lookup.launches["lookup_rows_bwd"] == before + 1
+
+
+def test_lookup_takes_tables_past_48kb(cuda):
+    """The brick-sigma table of 64 volumes of 64^3: [64 * 512, 1] f32,
+    128 KB of shared memory per block."""
+    k = 64 * 512
+    assert lookup.smem_limit(cuda) >= k * 4
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tab = torch.rand((k, 1), generator=gen, device=cuda)
+    idx = torch.randint(-8, k + 8, (300_007,), generator=gen, device=cuda, dtype=torch.int32)
+    got = lookup.lookup_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lookup.lookup_rows_plain(tab, idx))
+    _hold_bwd(torch.randn((idx.shape[0], 1), generator=gen, device=cuda), idx, k)
+
+
+def test_gradient_kernels_match_plain(cuda):
+    """One binned gradient (the bench's (2,10)-step bins at edge 4, 2 bands)
+    and one render_diff image at 64x32, through the kernels and through
+    their plain versions."""
+    scene, cfg = monu_like_path(64, 32, gridsize=64)
+    scene = scene.to(cuda)
+    params = volumetric.params_from_scene(scene)
+    plan = train.prepare_bins(scene, cfg, torch.zeros((32, 64, 3), device=cuda))
+
+    def run():
+        _, g = train.binned_grads(params, scene, plan)
+        img = volumetric.render_diff(params, scene, cfg, 10, k=plan.k, span_steps=1)
+        return g, img
+
+    before = dict(traverse.launches, **lookup.launches)
+    ga, ia = run()
+    after = dict(traverse.launches, **lookup.launches)
+    for name in ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"):
+        assert after[name] > before[name], name
+    swapped = (volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd)
+    volumetric.traverse = traverse_occ
+    lookup.lookup_rows, lookup.lookup_rows_bwd = (lookup.lookup_rows_plain,
+                                                  lookup.lookup_rows_bwd_plain)
+    try:
+        gb, ib = run()
+    finally:
+        volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd = swapped
+    for f in ("density_logits", "albedo_table"):
+        a, b = getattr(ga, f), getattr(gb, f)
+        assert float(b.abs().max()) > 0
+        assert float((a - b).norm() / b.norm()) <= 1e-4, f
+    assert float((ia - ib).abs().max()) <= 1e-5

@@ -132,6 +132,11 @@ class VoxVolumes(_Record):
     def n(self) -> int:
         return self.grids.shape[0]
 
+    @property
+    def pad_size(self) -> int:
+        """G, the padded cube edge of every grid."""
+        return self.grids.shape[1]
+
 
 @dataclass
 class Sky(_Record):

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``voxtracer_torch/csrc``.
 
-All ``*.cu`` sources compile with nvcc into one shared library with a plain
-C interface, loaded with ctypes.  The library goes to
+Each ``*.cu`` source compiles with its own nvcc, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with ctypes.  The library goes to
 ``<repo>/build/voxtracer_torch/`` under a name keyed by a hash of the
 sources and flags, so an edit rebuilds; the first kernel call in a process
 builds it.  ptxas' register and spill report is kept beside it as
@@ -23,7 +24,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "voxtracer_torch"
 # multiply-add contraction (the kernels match their plain versions bit
 # for bit in hit/vol/cell only under these rules)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -49,12 +50,28 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        failed = [link.returncode] if link.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n" + "".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -65,6 +82,7 @@ _SIGNATURES = {
     "vt_traverse": [_I] + [_P] * 12 + [_I] * 4 + [_P] * 7 + [_P],
     "vt_exit_march": [_P] * 12 + [_I] * 4 + [_P] * 6 + [_P],
     "vt_lookup_rows": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _P],
+    "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _P],
 }
 
 

@@ -56,3 +56,18 @@ def primary_rays(cam: Camera, width: int, height: int, px, py):
          + v[..., None] * (cam.bottom_left - cam.top_left))
     origin = cam.pos.expand(p.shape)
     return origin, normalize(p - cam.pos)
+
+
+def primary_rays_np(cam: Camera, width: int, height: int, px, py):
+    """``primary_rays`` in numpy on the host, written as the JAX package's
+    ``primary_rays(..., lens_u=None, xp=np)`` so the two agree bit for
+    bit: the host-side bin and compaction permutations are built on it.
+    px, py: [N] float32 numpy arrays."""
+    pos, tl, tr, bl = (getattr(cam, f).cpu().numpy()
+                       for f in ("pos", "top_left", "top_right", "bottom_left"))
+    u = px * (1.0 / width)
+    v = py * (1.0 / height)
+    p = tl + u[..., None] * (tr - tl) + v[..., None] * (bl - tl)
+    origin = np.broadcast_to(pos, p.shape)
+    direction = p - pos
+    return origin, direction / np.sqrt((direction * direction).sum(axis=-1, keepdims=True))

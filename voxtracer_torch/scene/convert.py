@@ -5,7 +5,8 @@ dict of numpy arrays under the JAX field names and returns the port's
 ``Scene`` on ``device``, so both packages can render the very same
 arrays.  Fields that only feed the TPU kernels' VMEM tables
 (``occ_slot``, ``occ_rows0``, ``pal``, ``pal_rows0``, ``pages``) are
-ignored.
+ignored.  ``diff_params_from_numpy`` does the same for the JAX
+``DiffParams``.
 """
 
 from __future__ import annotations
@@ -17,18 +18,22 @@ import torch
 
 from voxtracer_torch.core.types import (Camera, Lights, Materials, Scene, Sky,
                                         Spheres, Triangles, VoxVolumes)
+from voxtracer_torch.diff.volumetric import DiffParams
 
 _RECORDS = dict(volumes=VoxVolumes, materials=Materials, lights=Lights,
                 spheres=Spheres, triangles=Triangles, sky=Sky, camera=Camera)
 
 
 def _tensor(a, device):
+    """A copy of `a` as a tensor: never a view of the caller's memory (a
+    numpy view of a JAX CPU array is the JAX buffer itself, and the port
+    updates parameters in place)."""
     a = np.asarray(a)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
     elif a.dtype in (np.int64, np.uint8, np.uint32):
         a = a.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
 
 
 def scene_from_numpy(tree: dict, device="cpu") -> Scene:
@@ -39,3 +44,9 @@ def scene_from_numpy(tree: dict, device="cpu") -> Scene:
         parts[name] = cls(**{f.name: _tensor(sub[f.name], device)
                              for f in fields(cls)})
     return Scene(**parts)
+
+
+def diff_params_from_numpy(tree: dict, device="cpu") -> DiffParams:
+    """tree: {"density_logits": [V, G, G, G], "albedo_table": [256, 3]}."""
+    return DiffParams(density_logits=_tensor(tree["density_logits"], device),
+                      albedo_table=_tensor(tree["albedo_table"], device))
