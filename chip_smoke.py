@@ -12,19 +12,25 @@ drives the port's two halves of the main path through its entry points:
 * the gradient step: the relaxed-march gradient over the bench's
   (2,10)-step span bins at edge 4 in 2 bands (diff.train.binned_grads),
   timed inside the fused step (forward frame + gradient, as bench.py
-  times it), and 3 Adam steps of the trainer (diff.train.make_train_step).
+  times it), and 3 Adam steps of the trainer (diff.train.make_train_step);
+* the Whitted renderer: glass_sphere_box at 512x512, depth 5, through the
+  branch queue (render_tiled in whitted mode);
+* the static-camera reprojection: the 1080p 4-bounce monu-like frame, one
+  frame to fill the history and 3 timed frames that blend with it, and
+  the media scene (render/reproject.render_reproject_frame).
 
-The launch counters show that each path went through its kernels, and a
-whole image and a whole gradient through the kernels are compared with
-ones through the plain versions.
+The launch counters show that each path went through its kernels, and
+whole images (path, whitted, reproject) and a whole gradient through the
+kernels are compared with ones through the plain versions.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
 version takes torch.rsqrt); lookup rows identical; lookup backward per
 entry within 1e-5 * (sum of |ct| over that entry's rows) + 1e-6 (both
-sides add with atomics, in no fixed order); forward images: at most 0.1%
-of pixels off by more than 1e-3; gradients: relative L2 <= 1e-4 on both
-parameters and relaxed images within 1e-5.  Kernel and plain times are
+sides add with atomics, in no fixed order); forward images (and the
+reproject history): at most 0.1% of pixels off by more than 1e-3
+(whitted's per-pixel scatter-add runs in no fixed order); gradients:
+relative L2 <= 1e-4 on both parameters and relaxed images within 1e-5.  Kernel and plain times are
 CUDA-event medians of 5 runs after one warm-up; step times are host
 clocks around synchronised runs, 1 warm-up and 3 reps.
 
@@ -37,6 +43,8 @@ it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -87,6 +95,58 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Swap the plain versions in for the kernels in every binding the
+    port reaches them through: the integrator's (which every renderer,
+    render/reproject.py included, uses), the relaxed march's traversal and
+    the lookup module's own names (which its autograd Function calls)."""
+    from voxtracer_torch.diff import volumetric
+    from voxtracer_torch.kernels import lookup, traverse
+    from voxtracer_torch.kernels.dda_occ import traverse_occ
+    from voxtracer_torch.render import integrator
+
+    swaps = [(integrator, "traverse", traverse_occ),
+             (integrator, "exit_march", traverse.exit_march_plain),
+             (integrator, "lookup_rows", lookup.lookup_rows_plain),
+             (volumetric, "traverse", traverse_occ),
+             (lookup, "lookup_rows", lookup.lookup_rows_plain),
+             (lookup, "lookup_rows_bwd", lookup.lookup_rows_bwd_plain)]
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, plain in swaps:
+        setattr(mod, attr, plain)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def pixels_off(a, b):
+    """Check that at most 0.1% of pixels of two images differ by more than
+    1e-3; return (that share, the largest difference)."""
+    diff = (a - b).abs().amax(-1)
+    frac = float((diff > 1e-3).float().mean())
+    check(frac <= 1e-3, f"{frac:.4%} of pixels differ by more than 1e-3")
+    return frac, float(diff.max())
+
+
+def host_times(fn, reps=3):
+    """fn() once to warm up, then `reps` runs timed on the host clock, each
+    ending in a device synchronise -> (median, min, spread, times) in ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for rep in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times) - min(times), times
+
+
 def main() -> int:
     import torch
 
@@ -96,15 +156,16 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     from voxtracer_torch.core import mathx
-    from voxtracer_torch.core.rng import fold_in, hash_uniform, make_key
-    from voxtracer_torch.core.types import GLASS, SMOKE_LOW_DENSITY, SMOKE_PLAYER
+    from voxtracer_torch.core.rng import (fold_in, hash_uniform, make_key, threefry_normal,
+                                          threefry_uniform)
+    from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_LOW_DENSITY, SMOKE_PLAYER
     from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, traverse
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
     from voxtracer_torch.kernels.dda_occ import traverse_occ
-    from voxtracer_torch.render import integrator
+    from voxtracer_torch.render import integrator, reproject
     from voxtracer_torch.render.camera import primary_rays
-    from voxtracer_torch.scene.presets import media_path, monu_like_path
+    from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
 
     dev = torch.device("cuda", 0)
 
@@ -290,20 +351,10 @@ def main() -> int:
     sscene = sscene.to(dev)
     a = integrator.render_tiled(sscene, scfg, key, 1, 1)
 
-    swapped = dict(traverse=integrator.traverse, exit_march=integrator.exit_march,
-                   lookup_rows=integrator.lookup_rows)
-    integrator.traverse = traverse_occ
-    integrator.exit_march = traverse.exit_march_plain
-    integrator.lookup_rows = lookup.lookup_rows_plain
-    try:
+    with plain_versions():
         b = integrator.render_tiled(sscene, scfg, key, 1, 1)
-    finally:
-        for attr, fn in swapped.items():
-            setattr(integrator, attr, fn)
-    diff = (a - b).abs().amax(-1)
-    frac = float((diff > 1e-3).float().mean())
-    check(frac <= 1e-3, f"{frac:.4%} of pixels differ by more than 1e-3")
-    log(f"[6] 256x128 kernels vs plain: max diff {float(diff.max()):.3g}, "
+    frac, dmax = pixels_off(a, b)
+    log(f"[6] 256x128 kernels vs plain: max diff {dmax:.3g}, "
         f"{frac:.4%} of pixels differ by more than 1e-3")
 
     # ---- 7. the gradient step's precompute, then K4's backward against its
@@ -401,13 +452,8 @@ def main() -> int:
         return g, volumetric.render_diff(sparams, sscene, scfg, 10, k=splan.k, span_steps=1)
 
     ga, ia = grad_and_image()
-    swapped = (volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd)
-    volumetric.traverse = traverse_occ
-    lookup.lookup_rows, lookup.lookup_rows_bwd = lookup.lookup_rows_plain, lookup.lookup_rows_bwd_plain
-    try:
+    with plain_versions():
         gb, ib = grad_and_image()
-    finally:
-        volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd = swapped
     rel = {}
     for f in ("density_logits", "albedo_table"):
         a, b = getattr(ga, f), getattr(gb, f)
@@ -433,9 +479,127 @@ def main() -> int:
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0], f"trainer losses {losses}")
     log(f"[10] trainer 1920x1080, 3 Adam steps: losses {losses}; step ms {times} ({smi})")
 
+    # ---- 11. whitted: glass_sphere_box at 512x512, depth 5, through the
+    # branch queue
+    wscene, wcfg = glass_sphere_box(512, 512)
+    wscene = wscene.to(dev)
+    reset_counts()
+    wimg = integrator.render_tiled(wscene, wcfg, key, 1, 1)
+    torch.cuda.synchronize()
+    whitted_counts = counts()
+    for kk in ("traverse_nearest", "traverse_occluded", "exit_march", "lookup_rows"):
+        check(whitted_counts[kk] > 0, f"{kk} not launched by the whitted frame")
+    wmean = float(wimg.mean())
+    check(tuple(wimg.shape) == (512, 512, 3), f"whitted image shape {tuple(wimg.shape)}")
+    check(bool(torch.isfinite(wimg).all()), "whitted image has non-finite values")
+    check(0.01 < wmean < 10.0, f"whitted image mean {wmean}")
+    # the queue's figures, from one more (uncounted) pass over the frame's
+    # primary rays in scanline order (render_tiled's are in tile order)
+    wy, wx = torch.meshgrid(torch.arange(512.0, device=dev), torch.arange(512.0, device=dev),
+                            indexing="ij")
+    wo, wd = primary_rays(wscene.camera, 512, 512, wx.reshape(-1), wy.reshape(-1))
+    qimg, iters, peak = integrator.whitted_queue(wscene, wcfg, wo.contiguous(), wd,
+                                                 wcfg.max_bounces)
+    pixels_off(qimg.reshape(512, 512, 3), wimg)
+    log(f"[11] whitted 512x512 glassbox, depth {wcfg.max_bounces}: mean {wmean:.4f}; queue "
+        f"{iters} iterations, peak population {peak} ({peak / (512 * 512):.2f} N); "
+        f"launches {whitted_counts}")
+    med, lo, spread, times = host_times(lambda: integrator.render_tiled(wscene, wcfg, key, 1, 1))
+    log(f"[11] whitted 512x512, depth 5: median {med:.1f} ms, min {lo:.1f} ms, spread "
+        f"{spread:.1f} ms -> {512 * 512 / med / 1e3:.3f} Mrays/s ({smi}); reps {times}")
+
+    # ---- 12. the 512x512 whitted frame of [11] through the kernels vs
+    # through the plain versions
+    t0 = time.perf_counter()
+    with plain_versions():
+        b = integrator.render_tiled(wscene, wcfg, key, 1, 1)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    frac, dmax = pixels_off(wimg, b)
+    log(f"[12] whitted 512x512 depth 5 kernels vs plain: max diff {dmax:.3g}, "
+        f"{frac:.4%} of pixels differ by more than 1e-3; plain frame {plain_s:.2f} s")
+
+    # ---- 13. reproject: the 1080p monu-like frame, 4 bounces; frame 0
+    # fills the history (counted), then 1 warm-up and 3 timed frames; then
+    # the media scene (counted on its own)
+    rcfg = dataclasses.replace(cfg, mode="reproject")
+    hist = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    reset_counts()
+    rimg, hist, gbuf = reproject.render_reproject_frame(scene, rcfg, scene.camera, hist, key)
+    torch.cuda.synchronize()
+    rp_counts = counts()
+    for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+        check(rp_counts[kk] > 0, f"{kk} not launched by the reproject frame")
+    for what, x in (("image", rimg), ("history", hist)):
+        check(tuple(x.shape) == (1080, 1920, 3), f"reproject {what} shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"reproject {what} has non-finite values")
+    rmean = float(rimg.mean())
+    check(0.02 < rmean < 1.0, f"reproject image mean {rmean}")
+    hit_share = float((gbuf["m0"] != MAT_NONE).float().mean())
+    log(f"[13] reproject 1920x1080, 4 bounces: image mean {rmean:.4f}, history mean "
+        f"{float(hist.mean()):.4f}, {hit_share:.1%} first hits; launches {rp_counts}")
+    frame = 0
+
+    def next_frame():
+        nonlocal rimg, hist, frame
+        frame += 1
+        rimg, hist, _ = reproject.render_reproject_frame(scene, rcfg, scene.camera, hist,
+                                                         fold_in(key, frame))
+
+    med, lo, spread, times = host_times(next_frame)
+    check(bool(torch.isfinite(rimg).all() and torch.isfinite(hist).all()),
+          "reproject frames 1-4 have non-finite values")
+    log(f"[13] reproject 1920x1080, frame 1 warm-up, frames 2-4 timed, each blending with "
+        f"the history: median {med:.1f} ms, min {lo:.1f} ms, spread {spread:.1f} ms -> "
+        f"{n / med / 1e3:.3f} Mrays/s ({smi}); frames {times}")
+    # the jax.random streams one bounce draws: uniform (n,2), (n,3), (n,)
+    # and normal (n,3) twice
+    tk = fold_in(key, 5)
+    rng_ms = (cuda_ms(lambda: threefry_uniform(tk, (n, 2), dev))
+              + cuda_ms(lambda: threefry_uniform(tk, (n, 3), dev))
+              + cuda_ms(lambda: threefry_uniform(tk, (n,), dev))
+              + 2 * cuda_ms(lambda: threefry_normal(tk, (n, 3), dev)))
+    log(f"[13] threefry streams of one 1080p bounce: {rng_ms:.2f} ms of device time "
+        f"(x {rcfg.max_bounces + 1} bounces at most) ({smi})")
+    mrcfg = dataclasses.replace(mcfg, mode="reproject")
+    mhist = torch.zeros((mcfg.height, mcfg.width, 3), device=dev)
+    reset_counts()
+    for i in range(2):
+        mrimg, mhist, _ = reproject.render_reproject_frame(mscene, mrcfg, mscene.camera, mhist,
+                                                           fold_in(key, i))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(mrimg).all()), "media reproject image has non-finite values")
+    media_rp_counts = counts()
+    check(media_rp_counts["exit_march"] > 0,
+          "exit_march not launched by the media reproject frames")
+    log(f"[13] media 256x256 reproject, 2 frames: mean {float(mrimg.mean()):.4f}; "
+        f"launches {media_rp_counts}")
+
+    # ---- 14. a resolved reproject frame through the kernels vs through the
+    # plain versions: frame 0 fills the history, frame 1 blends with it
+    qscene, qcfg = monu_like_path(256, 128, bounces=4)
+    qscene = qscene.to(dev)
+    qcfg = dataclasses.replace(qcfg, mode="reproject")
+
+    def two_frames():
+        h0 = torch.zeros((128, 256, 3), device=dev)
+        _, h1, _ = reproject.render_reproject_frame(qscene, qcfg, qscene.camera, h0, key)
+        return reproject.render_reproject_frame(qscene, qcfg, qscene.camera, h1,
+                                                fold_in(key, 1))[:2]
+
+    a, ah = two_frames()
+    with plain_versions():
+        b, bh = two_frames()
+    frac, dmax = pixels_off(a, b)
+    hfrac, hmax = pixels_off(ah, bh)
+    log(f"[14] reproject 256x128 kernels vs plain (frame 1): image max diff {dmax:.3g}, "
+        f"{frac:.4%} of pixels off by more than 1e-3; history max diff {hmax:.3g}, {hfrac:.4%}")
+
     # ---- results
     for r in results:
-        r["launches"] = fwd_counts[r["name"]] + grad_counts[r["name"]]
+        r["launches"] = (fwd_counts[r["name"]] + grad_counts[r["name"]]
+                         + whitted_counts[r["name"]] + rp_counts[r["name"]]
+                         + media_rp_counts[r["name"]])
     log(json.dumps({"kernels": results}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of the port's forward frame or gradient step goes, on one GPU.
 
-    python scripts/torch_profile_frame.py [--step frame|grad|fused]
+    python scripts/torch_profile_frame.py [--step frame|grad|fused|whitted|reproject]
                                           [--width 1920 --height 1080 --bounces 4]
 
-Runs one step on the asset-free monu-like scene under torch.profiler after
-two warm-up steps: "frame" renders the path-traced frame (render_tiled),
-"grad" takes the relaxed-march gradient over the bench's (2,10)-step span
-bins at edge 4 in 2 bands (diff.train.binned_grads), "fused" does both
-(diff.train.fused_step).  Prints the device time by kernel (top 25), the
+Runs one step under torch.profiler after two warm-up steps.  On the
+asset-free monu-like scene: "frame" renders the path-traced frame
+(render_tiled), "grad" takes the relaxed-march gradient over the bench's
+(2,10)-step span bins at edge 4 in 2 bands (diff.train.binned_grads),
+"fused" does both (diff.train.fused_step), "reproject" renders a
+static-camera frame against the history of the frames before it
+(render/reproject.render_reproject_frame).  "whitted" renders
+glass_sphere_box through the branch queue at the given width (default
+512x512, depth 5).  Prints the device time by kernel (top 25), the
 share of device time spent in the hand-written kernels, and the device
 busy share of the step's wall time.  The chrome trace goes to --trace
 (default out/torch_<step>_trace.json).
@@ -17,6 +21,7 @@ busy share of the step's wall time.  The chrome trace goes to --trace
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -31,32 +36,47 @@ from voxtracer_torch.core.rng import fold_in, make_key  # noqa: E402
 from voxtracer_torch.diff import train  # noqa: E402
 from voxtracer_torch.diff.volumetric import params_from_scene  # noqa: E402
 from voxtracer_torch.render.integrator import render_tiled  # noqa: E402
-from voxtracer_torch.scene.presets import monu_like_path  # noqa: E402
+from voxtracer_torch.render.reproject import render_reproject_frame  # noqa: E402
+from voxtracer_torch.scene.presets import glass_sphere_box, monu_like_path  # noqa: E402
 
 OURS = ("traverse_kernel", "exit_kernel", "lookup_kernel", "lookup_bwd_kernel")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--width", type=int, default=1920)
-    ap.add_argument("--height", type=int, default=1080)
-    ap.add_argument("--bounces", type=int, default=4)
-    ap.add_argument("--step", choices=("frame", "grad", "fused"), default="frame")
+    ap.add_argument("--width", type=int)
+    ap.add_argument("--height", type=int)
+    ap.add_argument("--bounces", type=int)
+    ap.add_argument("--step", choices=("frame", "grad", "fused", "whitted", "reproject"),
+                    default="frame")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    scene, cfg = monu_like_path(args.width, args.height, bounces=args.bounces)
+    if args.step == "whitted":
+        scene, cfg = glass_sphere_box(args.width or 512, args.height or args.width or 512)
+        if args.bounces is not None:
+            cfg = dataclasses.replace(cfg, max_bounces=args.bounces)
+    else:
+        scene, cfg = monu_like_path(args.width or 1920, args.height or 1080,
+                                    bounces=4 if args.bounces is None else args.bounces)
+    if args.step == "reproject":
+        cfg = dataclasses.replace(cfg, mode="reproject")
     scene = scene.to("cuda")
     key = make_key(0)
-    if args.step != "frame":
+    history = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    if args.step in ("grad", "fused"):
         params = params_from_scene(scene)
         plan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3),
                                                           device="cuda"))
 
     def run(i):
-        if args.step == "frame":
+        nonlocal history
+        if args.step in ("frame", "whitted"):
             render_tiled(scene, cfg, fold_in(key, i), 1, 1)
+        elif args.step == "reproject":
+            _, history, _ = render_reproject_frame(scene, cfg, scene.camera, history,
+                                                   fold_in(key, i))
         elif args.step == "grad":
             train.binned_grads(params, scene, plan)
         else:

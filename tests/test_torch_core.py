@@ -174,6 +174,7 @@ def test_port_imports_neither_jax_nor_reference():
         import voxtracer_torch, voxtracer_torch.render.integrator, voxtracer_torch.cli
         import voxtracer_torch.scene.presets, voxtracer_torch.scene.convert
         import voxtracer_torch.diff.volumetric, voxtracer_torch.diff.train
+        import voxtracer_torch.render.reproject, voxtracer_torch.core.sampling
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "voxtracer")]
         assert not bad, bad

@@ -5,8 +5,11 @@ CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
 lookup rows identical, the lookup's backward per entry within
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
-atomics, in no fixed order), and a whole relaxed-march gradient through
-the kernels within relative L2 1e-4 of one through the plain versions.
+atomics, in no fixed order), a whole relaxed-march gradient through
+the kernels within relative L2 1e-4 of one through the plain versions,
+and whitted and reproject images through the kernels with at most 0.1%
+of pixels off by more than 1e-3 from ones through the plain versions
+(whitted's per-pixel scatter-add runs in no fixed order).
 Without a CUDA device every test skips: the
 kernels have no CPU mode.  This file imports neither JAX nor the JAX
 package, so it runs on a machine with the card and PyTorch alone:
@@ -14,17 +17,22 @@ package, so it runs on a machine with the card and PyTorch alone:
     python -m pytest tests/test_torch_gpu.py -q --noconftest -p no:cacheprovider
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import plain_versions
 from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
 from voxtracer_torch.diff import train, volumetric
 from voxtracer_torch.kernels import lookup, traverse
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
-from voxtracer_torch.scene.presets import monu_like_path
+from voxtracer_torch.core.rng import fold_in, make_key
+from voxtracer_torch.render import integrator, reproject
+from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -196,16 +204,50 @@ def test_gradient_kernels_match_plain(cuda):
     after = dict(traverse.launches, **lookup.launches)
     for name in ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"):
         assert after[name] > before[name], name
-    swapped = (volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd)
-    volumetric.traverse = traverse_occ
-    lookup.lookup_rows, lookup.lookup_rows_bwd = (lookup.lookup_rows_plain,
-                                                  lookup.lookup_rows_bwd_plain)
-    try:
+    with plain_versions():
         gb, ib = run()
-    finally:
-        volumetric.traverse, lookup.lookup_rows, lookup.lookup_rows_bwd = swapped
     for f in ("density_logits", "albedo_table"):
         a, b = getattr(ga, f), getattr(gb, f)
         assert float(b.abs().max()) > 0
         assert float((a - b).norm() / b.norm()) <= 1e-4, f
     assert float((ia - ib).abs().max()) <= 1e-5
+
+
+def _kernels_vs_plain(run):
+    """run() through the kernels, then through the plain versions swapped
+    into the port's bindings; every kernel must have launched."""
+    before = dict(traverse.launches, **lookup.launches)
+    a = run()
+    after = dict(traverse.launches, **lookup.launches)
+    with plain_versions():
+        b = run()
+    for name in ("traverse_nearest", "traverse_occluded", "exit_march", "lookup_rows"):
+        assert after[name] > before[name], name
+    for x, y in zip(a, b):
+        assert bool(torch.isfinite(x).all())
+        assert float(((x - y).abs().amax(-1) > 1e-3).float().mean()) <= 1e-3
+    return a
+
+
+def test_whitted_kernels_match_plain(cuda):
+    scene, cfg = glass_sphere_box(128, 64)
+    scene = scene.to(cuda)
+    (img,) = _kernels_vs_plain(lambda: (integrator.render_tiled(scene, cfg, make_key(0), 1, 1),))
+    assert float(img.mean()) > 0.01
+
+
+def test_reproject_kernels_match_plain(cuda):
+    """Two media frames: the first fills the history, the second blends."""
+    scene, cfg = media_path(128, 64, bounces=3)
+    scene = scene.to(cuda)
+    cfg = dataclasses.replace(cfg, mode="reproject")
+
+    def run():
+        h = torch.zeros((64, 128, 3), device=cuda)
+        _, h, _ = reproject.render_reproject_frame(scene, cfg, scene.camera, h, make_key(0))
+        img, h, _ = reproject.render_reproject_frame(scene, cfg, scene.camera, h,
+                                                     fold_in(make_key(0), 1))
+        return img, h
+
+    img, _ = _kernels_vs_plain(run)
+    assert 0.01 < float(img.mean()) < 1.0

@@ -2,9 +2,13 @@
 
     python -m voxtracer_torch.cli render --preset monu_like --mode path \\
         --width 1920 --height 1080 --bounces 4 --output out.png
+    python -m voxtracer_torch.cli render --preset glassbox --width 512   # whitted
+    python -m voxtracer_torch.cli render --preset monu_like --mode reproject --frames 4
 
 The scene lives on ``--device`` (default ``cuda``); CUDA tensors run the
-hand-written kernels, so the default needs a GPU.
+hand-written kernels, so the default needs a GPU.  Path, primary and
+whitted frames are averaged; reproject frames carry the illumination
+history from frame to frame and the last resolved frame is written.
 """
 
 from __future__ import annotations
@@ -18,8 +22,18 @@ import torch
 from voxtracer_torch.core.rng import fold_in, make_key
 from voxtracer_torch.io.image import write_png
 from voxtracer_torch.render.integrator import render_tiled
+from voxtracer_torch.render.reproject import render_reproject_frame
 from voxtracer_torch.render.tonemap import to_rgb8
 from voxtracer_torch.scene.presets import PRESETS
+
+
+def _timed(device, frame, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"frame {frame}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return out
 
 
 def cmd_render(args) -> None:
@@ -34,17 +48,25 @@ def cmd_render(args) -> None:
     device = torch.device(args.device)
     scene = scene.to(device)
     key = make_key(args.seed)
-    acc = torch.zeros((cfg.height, cfg.width, 3), device=device)
-    for frame in range(args.frames):
-        t0 = time.perf_counter()
-        acc += render_tiled(scene, cfg, fold_in(key, frame), args.spp, args.tiles)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        print(f"frame {frame}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    img = to_rgb8(acc / args.frames).cpu().numpy()
-    write_png(args.output, img)
-    print(f"wrote {args.output} ({cfg.width}x{cfg.height}, {args.frames} frames "
-          f"x {args.spp} spp, mode={cfg.mode}, device={device})")
+    if cfg.mode == "reproject":
+        # static camera: each frame resolves against the previous frame's
+        # illumination history; the resolved image is already tonemapped
+        history = torch.zeros((cfg.height, cfg.width, 3), device=device)
+        for frame in range(args.frames):
+            img, history, _ = _timed(device, frame, lambda: render_reproject_frame(
+                scene, cfg, scene.camera, history, fold_in(key, frame)))
+        rgb = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        what = f"{args.frames} reprojected frames"
+    else:
+        acc = torch.zeros((cfg.height, cfg.width, 3), device=device)
+        for frame in range(args.frames):
+            acc += _timed(device, frame, lambda: render_tiled(
+                scene, cfg, fold_in(key, frame), args.spp, args.tiles))
+        rgb = to_rgb8(acc / args.frames)
+        what = f"{args.frames} frames x {args.spp} spp"
+    write_png(args.output, rgb.cpu().numpy())
+    print(f"wrote {args.output} ({cfg.width}x{cfg.height}, {what}, mode={cfg.mode}, "
+          f"device={device})")
 
 
 def main(argv=None) -> None:
@@ -52,7 +74,8 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render", help="render a preset to PNG")
     r.add_argument("--preset", choices=sorted(PRESETS), default="monu_like")
-    r.add_argument("--mode", choices=("primary", "path"))
+    r.add_argument("--mode", choices=("primary", "path", "whitted", "reproject"),
+                   help="default: the preset's (glassbox renders whitted)")
     r.add_argument("--width", type=int)
     r.add_argument("--height", type=int)
     r.add_argument("--bounces", type=int)

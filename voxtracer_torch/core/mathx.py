@@ -36,6 +36,26 @@ def normalize(v):
     return v / sqrt(dot3(v, v))[..., None]
 
 
+def reflect(d, n):
+    """Mirror reflection of [N, 3] directions (renderer.cpp:913-916)."""
+    return d - 2.0 * n * dot3(d, n)[..., None]
+
+
+def refract(d, n, ior_ratio):
+    """Snell refraction of [N, 3] directions, 'Ray Tracing in One Weekend'
+    form (renderer.cpp:919-925); ior_ratio [N]."""
+    cos_theta = torch.clamp(dot3(-d, n), max=1.0)[..., None]
+    r_perp = ior_ratio[..., None] * (d + cos_theta * n)
+    r_par = -sqrt(torch.abs(1.0 - dot3(r_perp, r_perp)))[..., None] * n
+    return r_perp + r_par
+
+
+def absorption(color, intensity, distance):
+    """Beer-Lambert with the combined density term (renderer.cpp:1596-1608);
+    the reference replaces the colour with the transmittance."""
+    return torch.exp(-distance[..., None] * intensity[..., None] * (1.0 - color))
+
+
 def pow5(x):
     """x ** 5 as lax.integer_pow computes it: x * (x * x) ** 2."""
     x2 = x * x
@@ -101,3 +121,23 @@ def reinhard_jodie(color):
     tc = color / (1.0 + color)
     tl = color / (1.0 + lum)
     return tl + tc * (tc - tl)
+
+
+_CHROMA_BIAS = 0.5 * 256.0 / 255.0
+
+
+def rgb_to_ycocg(rgb):
+    """[..., 3] RGB -> YCoCg (renderer.cpp:833-839)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = (r * 1.0 + g * 2.0 + b * 1.0) * 0.25
+    co = (r * 2.0 + g * 0.0 + b * -2.0) * 0.25 + _CHROMA_BIAS
+    cg = (r * -1.0 + g * 2.0 + b * -1.0) * 0.25 + _CHROMA_BIAS
+    return torch.stack([y, co, cg], dim=-1)
+
+
+def ycocg_to_rgb(ycocg):
+    """[..., 3] YCoCg -> RGB (renderer.cpp:841-851)."""
+    y = ycocg[..., 0]
+    co = ycocg[..., 1] - _CHROMA_BIAS
+    cg = ycocg[..., 2] - _CHROMA_BIAS
+    return torch.stack([y + co - cg, y + cg, y - co - cg], dim=-1)

@@ -35,8 +35,9 @@ def _rotl(x: int, r: int) -> int:
     return ((x << r) | (x >> (32 - r))) & M32
 
 
-def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple:
-    """Threefry-2x32, 20 rounds, on one pair of words."""
+def _threefry2x32(k0: int, k1: int, x0, x1) -> tuple:
+    """Threefry-2x32, 20 rounds, on one pair of words: Python ints, or
+    int64 tensors of uint32 values (the key words stay Python ints)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     rot = ((13, 15, 26, 6), (17, 29, 16, 24))
     x0 = (x0 + ks[0]) & M32
@@ -90,3 +91,69 @@ def hash_normal(key: tuple, salt: int, shape, device) -> torch.Tensor:
     u2 = hash_uniform(key, salt + 0x5D0, shape, device)
     r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
     return r * torch.cos((2.0 * math.pi) * u2)
+
+
+# --------------------------------------------------------------------------
+# jax.random streams (threefry2x32 with jax_threefry_partitionable): the
+# reproject pass draws from these directly, not through the hash.
+# --------------------------------------------------------------------------
+
+def threefry_bits(key: tuple, shape, device) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values: element i
+    of the row-major shape is ``y0 ^ y1`` of threefry2x32(key, (hi, lo))
+    over the 64-bit counter i = hi * 2**32 + lo."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    hi = idx >> 32 if n > M32 else 0
+    y0, y1 = _threefry2x32(key[0], key[1], hi, idx & M32)
+    return (y0 ^ y1).reshape(shape)
+
+
+def _unit_floats(bits):
+    """uint32 bits -> f32 in [0, 1): the top 23 bits as the mantissa of a
+    float in [1, 2), minus one (jax.random._uniform)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def threefry_uniform(key: tuple, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)``, bit for bit."""
+    return _unit_floats(threefry_bits(key, shape, device))
+
+
+# M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),
+# single precision, as XLA expands erf_inv: the w < 5 and w >= 5 branches
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+              0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+              1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+              0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+              2.83297682)
+
+
+def erf_inv(x):
+    """f32 inverse error function, the polynomial XLA uses for
+    ``lax.erf_inv``.  torch.erfinv rounds differently in the last bits."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, _ERFINV_LO[i], _ERFINV_HI[i]).to(x.dtype)
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LO)):
+        p = coef(i) + p * w
+    return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+_NORMAL_LO = -0.99999994039535522  # nextafter(-1, 0) in float32
+
+
+def threefry_normal(key: tuple, shape, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) * erf_inv(u) of
+    a uniform u in (-1, 1).  The uniform is bit-equal; erf_inv is XLA's
+    polynomial, which XLA evaluates with fused multiply-adds, so the
+    normals agree to a few ulps (tests/test_torch_reproject.py)."""
+    u = _unit_floats(threefry_bits(key, shape, device)) * 2.0 + _NORMAL_LO
+    u = torch.clamp(u, min=_NORMAL_LO)
+    return math.sqrt(2.0) * erf_inv(u)

@@ -6,7 +6,7 @@ scene with ``scene.to(device)``.
 * ``monu_like_path``: the monu path-tracing scene (presets.monu_path) with
   three procedural noise volumes standing in for the monu1-3 ``.vox``
   models, which are not in the repository.
-* ``glass_sphere_box``: the small dielectric test box.
+* ``glass_sphere_box``: the small dielectric test box, rendered whitted.
 * ``media_path``: the glass box plus a smoke volume, path traced, so rays
   march through both glass and smoke.
 """
@@ -84,13 +84,14 @@ def _glass_box_view(width, height):
 
 
 def glass_sphere_box(width=64, height=64):
-    """Small dielectric test scene; the JAX package renders it whitted,
-    this port (path and primary only so far) path traces it."""
+    """The small deterministic dielectric scene (presets.py:164-188),
+    rendered whitted at depth 5 with the all-lights NEE sum: it takes
+    every whitted branch, the glass block's exit march included."""
     lights, cam = _glass_box_view(width, height)
     scene = _assemble(build_volumes(glass_box_specs()), default_materials(),
                       lights, cam)
-    cfg = RenderConfig(width=width, height=height, mode="path", max_bounces=5,
-                       activate_sky=False)
+    cfg = RenderConfig(width=width, height=height, mode="whitted", max_bounces=5,
+                       activate_sky=False, deterministic_lights=True)
     return scene, cfg
 
 
