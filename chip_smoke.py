@@ -17,22 +17,33 @@ drives the port's two halves of the main path through its entry points:
   branch queue (render_tiled in whitted mode);
 * the static-camera reprojection: the 1080p 4-bounce monu-like frame, one
   frame to fill the history and 3 timed frames that blend with it, and
-  the media scene (render/reproject.render_reproject_frame).
+  the media scene (render/reproject.render_reproject_frame);
+* the kernel probes (voxtracer_torch.probe.main): the lane gather, the
+  2048-entry gather and the DDA-shaped ALU loop, each held against its
+  plain version at B = 32, 256 and 1024 first.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
-kernels are compared with ones through the plain versions.
+kernels are compared with ones through the plain versions.  Beside each
+kernel's time stand its bound, the larger of its bytes over 3.35 TB/s and
+its 32-bit operations over 67 T/s (the H100's HBM and fp32 peaks; for
+the walks of K1-K3 the operations are the plain walk's step counts on the
+same rays times each step's operations counted from csrc/traverse.cu),
+and the time of one PyTorch call that computes the same function, where
+there is one.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
-version takes torch.rsqrt); lookup rows identical; lookup backward per
-entry within 1e-5 * (sum of |ct| over that entry's rows) + 1e-6 (both
-sides add with atomics, in no fixed order); forward images (and the
+version takes torch.rsqrt); lookup rows and probe results identical;
+lookup backward per entry within 1e-5 * (sum of |ct| over that entry's
+rows) + 1e-6 (both sides add with atomics, in no fixed order); forward
+images (and the
 reproject history): at most 0.1% of pixels off by more than 1e-3
 (whitted's per-pixel scatter-add runs in no fixed order); gradients:
-relative L2 <= 1e-4 on both parameters and relaxed images within 1e-5.  Kernel and plain times are
-CUDA-event medians of 5 runs after one warm-up; step times are host
-clocks around synchronised runs, 1 warm-up and 3 reps.
+relative L2 <= 1e-4 on both parameters and relaxed images within 1e-5.
+Kernel and plain times are CUDA-event medians of 5 runs after one warm-up
+(3 for the probes' plain loops); step times are host clocks around
+synchronised runs, 1 warm-up and 3 reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -54,8 +66,36 @@ import sys
 import time
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+# 32-bit operations per unit of the walk of csrc/traverse.cu, counted from
+# its source (each add, multiply, compare, select, logic op, load,
+# conversion or division one), per unit of dda_occ.STEPS: the entry test
+# of a (ray, volume) pair (object_ray + entry_t), a walk's set-up
+# (object_ray and entry_t again, six setup_axis), an outer iteration
+# (brick index, 64-byte row read, OR), a descent (three axes re-seeded), a
+# fine cell step and a macro brick step
+WALK_OPS = dict(entries=120, walks=240, rows=30, descends=54, cells=41, bricks=17)
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_, ops):
+    """The least time the card could take -> (ms, "bytes" or "operations",
+    the bytes' ms, the operations' ms)."""
+    by_bytes, by_ops = nbytes_ / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            by_bytes, by_ops)
+
+
+def walk_ops(tally):
+    return sum(WALK_OPS[k] * n for k, n in tally.items())
 
 
 def nvidia_smi() -> str:
@@ -155,12 +195,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+    import numpy as np
+
+    from voxtracer_torch import probe
     from voxtracer_torch.core import mathx
     from voxtracer_torch.core.rng import (fold_in, hash_uniform, make_key, threefry_normal,
                                           threefry_uniform)
     from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_LOW_DENSITY, SMOKE_PLAYER
     from voxtracer_torch.diff import train, volumetric
-    from voxtracer_torch.kernels import build, lookup, traverse
+    from voxtracer_torch.kernels import build, lookup, probes, traverse
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
     from voxtracer_torch.kernels.dda_occ import traverse_occ
     from voxtracer_torch.render import integrator, reproject
@@ -181,7 +224,7 @@ def main() -> int:
     build.lib()
     log(f"[2] build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "properties for" in line:
             log("    ptxas:", line.strip())
 
     # ---- 3. each kernel against its plain version at the slice's shapes
@@ -204,36 +247,44 @@ def main() -> int:
     big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     results = []
 
-    def report(kname, source, replaces, err, ms, plain_ms, phase=3):
+    def report(kname, source, replaces, err, ms, plain_ms, bnd, library_ms, phase=3):
         results.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces, launches=0, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=library_ms))
+        lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
         log(f"[{phase}] {kname}: max_abs_err {err:.3g}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms ({smi})")
+            f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; bytes {bnd[2]:.4f} ms, "
+            f"operations {bnd[3]:.4f} ms), library {lib_txt} ({smi})")
 
     def reset_counts():
-        for c in (traverse.launches, lookup.launches):
+        for c in (traverse.launches, lookup.launches, probes.launches):
             for kk in c:
                 c[kk] = 0
 
     def counts():
-        return dict(traverse.launches, **lookup.launches)
+        return dict(traverse.launches, **lookup.launches, **probes.launches)
 
     def near(fn):
         return fn(*vargs, o, d, big, ones, ven, vols.occ, vols.bricksize, mode="nearest")
 
     k = near(traverse.traverse)
-    p = near(traverse_occ)
+    tally1 = {}
+    p = near(functools.partial(traverse_occ, tally=tally1))
     torch.cuda.synchronize()
     for f in ("hit", "vol", "cell"):
         check(torch.equal(k[f], p[f].to(k[f].dtype)), f"K1 {f} differs")
     check(torch.allclose(k["t"], p["t"], rtol=1e-6, atol=1e-6), "K1 t")
     nerr = max(max_err(k[c], p[c]) for c in ("nx", "ny", "nz"))
     check(nerr <= 1e-5, f"K1 normals {nerr}")
-    log(f"    K1: {int(k['hit'].sum())} of {n} primary rays hit")
+    hits = int(k["hit"].sum())
+    log(f"    K1: {hits} of {n} primary rays hit; plain walk steps {tally1}")
+    # the occupancy plane it walks, and one grid cell per hit
     report("traverse_nearest", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:1048", max(nerr, max_err(k["t"], p["t"])),
-           cuda_ms(lambda: near(traverse.traverse)), cuda_ms(lambda: near(traverse_occ)))
+           cuda_ms(lambda: near(traverse.traverse)), cuda_ms(lambda: near(traverse_occ)),
+           bound(nbytes(o, d, big, ones, ven, vols.occ[0], *k.values()) + 4 * hits,
+                 walk_ops(tally1)), None)
 
     # K2: the primary hits' shadow rays to the point light
     hit = k["hit"]
@@ -247,12 +298,16 @@ def main() -> int:
     def occl(fn):
         return fn(*vargs, so, sd, dst, hit, ven, vols.occ, vols.bricksize, mode="occluded")
 
-    k2, p2 = occl(traverse.traverse), occl(traverse_occ)
+    tally2 = {}
+    k2, p2 = occl(traverse.traverse), occl(functools.partial(traverse_occ, tally=tally2))
     check(torch.equal(k2["hit"], p2["hit"]), "K2 hit differs")
-    log(f"    K2: {int(k2['hit'].sum())} of {int(hit.sum())} shadow rays occluded")
+    log(f"    K2: {int(k2['hit'].sum())} of {int(hit.sum())} shadow rays occluded; "
+        f"plain walk steps {tally2}")
     report("traverse_occluded", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:1048", 0.0,
-           cuda_ms(lambda: occl(traverse.traverse)), cuda_ms(lambda: occl(traverse_occ)))
+           cuda_ms(lambda: occl(traverse.traverse)), cuda_ms(lambda: occl(traverse_occ)),
+           bound(nbytes(so, sd, dst, hit, ven, vols.occ[0], k2["hit"]), walk_ops(tally2)),
+           None)
 
     # K3: rays started inside the glass and smoke cells of the media scene
     mscene, mcfg = media_path(256, 256)
@@ -281,21 +336,25 @@ def main() -> int:
     def exit_k():
         return traverse.exit_march(*mvargs, eo, md, emask, code, evol, mv.occ, mv.bricksize)
 
-    def exit_p():
+    def exit_p(tally=None):
         return traverse.exit_march_plain(*mvargs, eo, md, emask, code, evol, mv.occ,
-                                         mv.bricksize)
+                                         mv.bricksize, tally=tally)
 
-    k3, p3 = exit_k(), exit_p()
+    tally3 = {}
+    k3, p3 = exit_k(), exit_p(tally3)
     for f in ("in_vol", "cell"):
         check(torch.equal(k3[f], p3[f].to(k3[f].dtype)), f"K3 {f} differs")
     check(torch.allclose(k3["t"], p3["t"], rtol=1e-6, atol=1e-6), "K3 t")
     nerr3 = max(max_err(k3[c], p3[c]) for c in ("nx", "ny", "nz"))
     check(nerr3 <= 1e-5, f"K3 normals {nerr3}")
-    log(f"    K3: {int(glass.sum())} glass + {int(smoke.sum())} smoke rays, "
-        f"{int(k3['in_vol'].sum())} left their medium inside the grid")
+    left = int(k3["in_vol"].sum())
+    log(f"    K3: {int(glass.sum())} glass + {int(smoke.sum())} smoke rays of {mn}, "
+        f"{left} left their medium inside the grid; plain walk steps {tally3}")
     report("exit_march", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:903", max(nerr3, max_err(k3["t"], p3["t"])),
-           cuda_ms(exit_k), cuda_ms(exit_p))
+           cuda_ms(exit_k), cuda_ms(exit_p),
+           bound(nbytes(eo, md, emask, code, evol, mv.occ[1:], *k3.values()) + 4 * left,
+                 walk_ops(tally3)), None)
 
     # K4: the material rows of 2,073,600 rays, out-of-range indices included
     m = scene.materials
@@ -305,10 +364,15 @@ def main() -> int:
     idx = torch.randint(-8, 264, (n,), generator=gen, device=dev, dtype=torch.int32)
     k4, p4 = lookup.lookup_rows(mtab, idx), lookup.lookup_rows_plain(mtab, idx)
     check(torch.equal(k4, p4), "K4 rows differ")
+    # library: the gather alone, ids pre-clamped; 3 operations per element
+    # (clamp twice, load)
+    cidx = idx.long().clamp(0, mtab.shape[0] - 1)
     report("lookup_rows", "voxtracer_torch/csrc/lookup.cu",
            "voxtracer/kernels/lookup.py:33", 0.0,
            cuda_ms(lambda: lookup.lookup_rows(mtab, idx)),
-           cuda_ms(lambda: lookup.lookup_rows_plain(mtab, idx)))
+           cuda_ms(lambda: lookup.lookup_rows_plain(mtab, idx)),
+           bound(nbytes(mtab, idx, k4), 3 * k4.numel()),
+           cuda_ms(lambda: torch.index_select(mtab, 0, cidx)))
 
     # ---- 4 + 5. the forward half of the main path, counted: 1080p
     # monu-like, then media
@@ -391,17 +455,27 @@ def main() -> int:
                           dtype=torch.int32)
     ct1 = torch.randn((core_rows, 1), generator=gen, device=dev)
     err7 = max(bwd_err(ct3, idx_m, 256), bwd_err(ct3, idx_o, 256), bwd_err(ct1, idx_b, k_b))
+
+    def bwd_bound(ct, idx, k):  # clamp twice and one add per element
+        return bound(nbytes(ct, idx) + k * ct.shape[1] * 4, 3 * ct.numel())
+
+    def index_add_ms(ct, idx, k):
+        ci = idx.long().clamp(0, k - 1)
+        return cuda_ms(lambda: ct.new_zeros((k, ct.shape[1])).index_add_(0, ci, ct))
+
     for what, ct_, idx_, k_ in (("albedo [256,3]", ct3, idx_m, 256),
                                 ("brick sigma", ct1, idx_b, k_b)):
-        ci = idx_.long().clamp(0, k_ - 1)
+        bnd = bwd_bound(ct_, idx_, k_)
         log(f"    K4 backward, {what} x {idx_.shape[0]} rows: kernel "
             f"{cuda_ms(lambda: lookup.lookup_rows_bwd(ct_, idx_, k_)):.3f} ms, plain (f64 "
             f"index_add_) {cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct_, idx_, k_)):.3f} ms, "
-            f"f32 index_add_ {cuda_ms(lambda: ct_.new_zeros((k_, ct_.shape[1])).index_add_(0, ci, ct_)):.3f} ms")
+            f"f32 index_add_ {index_add_ms(ct_, idx_, k_):.3f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}) ({smi})")
     report("lookup_rows_bwd", "voxtracer_torch/csrc/lookup.cu",
            "voxtracer/diff/volumetric.py:95", err7,
            cuda_ms(lambda: lookup.lookup_rows_bwd(ct3, idx_m, 256)),
-           cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct3, idx_m, 256)), phase=7)
+           cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct3, idx_m, 256)),
+           bwd_bound(ct3, idx_m, 256), index_add_ms(ct3, idx_m, 256), phase=7)
 
     # ---- 8. the gradient half of the main path, counted, then the fused
     # step (forward frame + gradient) timed
@@ -595,11 +669,59 @@ def main() -> int:
     log(f"[14] reproject 256x128 kernels vs plain (frame 1): image max diff {dmax:.3g}, "
         f"{frac:.4%} of pixels off by more than 1e-3; history max diff {hmax:.3g}, {hfrac:.4%}")
 
-    # ---- results
+    # ---- 15. the kernel probes: each probe kernel against its plain
+    # version at B = 32, 256 and 1024 over random int32 tables and indices
+    # (near and far floats for P4) at the entry point's loop counts, timed
+    # at B = 256; then the entry point voxtracer_torch.probe, counted
+    prng = np.random.default_rng(15)
+    probe_src = dict(P1="scripts/probe_pallas.py:78", P3="scripts/probe_pallas.py:118",
+                     P4="scripts/probe_pallas.py:162")
+
+    def wide(shape):
+        return torch.from_numpy(prng.integers(-2 ** 31, 2 ** 31 - 1, shape)
+                                .astype(np.int32)).to(dev)
+
+    for b in (32, 256, 1024):
+        far = prng.uniform(size=(b, 128)) < 0.25
+        y = np.where(far, prng.uniform(-1e9, 2e9, (b, 128)), prng.uniform(-100, 100, (b, 128)))
+        pargs = dict(P1=(wide((b, 128)), wide((b, 128))), P3=(wide((16, 128)), wide((b, 128))),
+                     P4=(wide((b, 128)), torch.from_numpy(y.astype(np.float32)).to(dev)))
+        for pid, args in pargs.items():
+            pname = probe.KERNELS[pid]
+            kern, plain = getattr(probes, pname), getattr(probes, pname + "_plain")
+            it = probe.START_K[pid]
+            got, want = kern(*args, it), plain(*args, it)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{pname} [B={b}] differs from its plain version")
+            if b != 256:
+                continue
+            report(pname, "voxtracer_torch/csrc/probes.cu", probe_src[pid], 0.0,
+                   cuda_ms(lambda: kern(*args, it)), cuda_ms(lambda: plain(*args, it), reps=3),
+                   bound(nbytes(*args, got), probe.COUNTS[pid][2] * it * got.numel()), None,
+                   phase=15)
+    log(f"[15] lane_gather, chain_gather, alu_loop equal their plain versions at B = 32, "
+        f"256, 1024 ({probe.START_K} iterations)")
+    reset_counts()
+    measured = probe.main()
+    torch.cuda.synchronize()
+    probe_counts = counts()
+    for kk in probes.launches:
+        check(probe_counts[kk] > 0, f"{kk} not launched by voxtracer_torch.probe")
+    for r in measured:
+        check(math.isfinite(r["ns"]) and r["ns"] > 0 and r["bound_ns"] > 0,
+              f"probe {r['probe']} [B={r['B']}]: {r['ns']} ns/idx")
+    log(f"[15] voxtracer_torch.probe: {len(measured)} probes; launches {probe_counts}")
+
+    # ---- results: launches per path, then summed over all of them
+    paths = {"path 1080p frame": after_monu,
+             "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
+             "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
+             "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
+             "probe": probe_counts}
+    for pth, c in paths.items():
+        log(f"[launches] {pth}: {c}")
     for r in results:
-        r["launches"] = (fwd_counts[r["name"]] + grad_counts[r["name"]]
-                         + whitted_counts[r["name"]] + rp_counts[r["name"]]
-                         + media_rp_counts[r["name"]])
+        r["launches"] = sum(c[r["name"]] for c in paths.values())
     log(json.dumps({"kernels": results}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

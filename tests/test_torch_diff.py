@@ -82,11 +82,11 @@ def world():
     jscene = jax.tree.map(jnp.asarray, js)
     jcfg = JaxConfig(width=W, height=H, mode="path", max_bounces=4)
     jp = jv.params_from_scene(jscene)
-    tscene = scene_from_numpy(_flatten(js))
+    tscene = scene_from_numpy(_flatten(js), device="cpu")
     tcfg = RenderConfig(width=W, height=H, mode="path", max_bounces=4)
     k = jv.max_aabb_crossings(jscene, jcfg)
     return dict(jscene=jscene, jcfg=jcfg, jp=jp, tscene=tscene, tcfg=tcfg, k=k,
-                tp=diff_params_from_numpy(_np_params(jp)))
+                tp=diff_params_from_numpy(_np_params(jp), device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +257,7 @@ def test_train_step_matches_optax_adam(world, dense_grads):
     target, g = dense_grads
     opt = optax.adam(1e-2)
     want = optax.apply_updates(world["jp"], opt.update(g, opt.init(world["jp"]), world["jp"])[0])
-    params = diff_params_from_numpy(_np_params(world["jp"]))
+    params = diff_params_from_numpy(_np_params(world["jp"]), device="cpu")
     step, init = train.make_train_step(world["tcfg"], DENSE_STEPS, lr=1e-2)
     params, _, loss = step(params, init(params), world["tscene"], _t(target))
     assert float(loss) > 0
@@ -303,7 +303,7 @@ def test_scene_from_numpy_copies(world):
     they came from (a numpy view of a JAX CPU array is its buffer)."""
     src = _np_params(world["jp"])
     before = src["albedo_table"].copy()
-    params = diff_params_from_numpy(src)
+    params = diff_params_from_numpy(src, device="cpu")
     params.albedo_table += 1.0
     np.testing.assert_array_equal(src["albedo_table"], before)
 

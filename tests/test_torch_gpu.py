@@ -3,7 +3,7 @@
 Each test builds the kernels (nvcc, csrc/) on first use, launches one on
 CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
-lookup rows identical, the lookup's backward per entry within
+lookup rows and the probes' results identical, the lookup's backward per entry within
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
 atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
@@ -26,7 +26,7 @@ import torch
 from chip_smoke import plain_versions
 from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
 from voxtracer_torch.diff import train, volumetric
-from voxtracer_torch.kernels import lookup, traverse
+from voxtracer_torch.kernels import lookup, probes, traverse
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
@@ -251,3 +251,43 @@ def test_reproject_kernels_match_plain(cuda):
 
     img, _ = _kernels_vs_plain(run)
     assert 0.01 < float(img.mean()) < 1.0
+
+
+def _probe_inputs(rng, b, dev):
+    def wide(shape):
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape).astype(np.int32)).to(dev)
+
+    far = rng.uniform(size=(b, 128)) < 0.25
+    y = np.where(far, rng.uniform(-1e9, 2e9, (b, 128)), rng.uniform(-100, 100, (b, 128)))
+    return {"lane_gather": (wide((b, 128)), wide((b, 128))),
+            "chain_gather": (wide((16, 128)), wide((b, 128))),
+            "alu_loop": (wide((b, 128)), torch.from_numpy(y.astype(np.float32)).to(dev))}
+
+
+@pytest.mark.parametrize("b", [32, 256, 1024])
+def test_probe_kernels_match_plain(cuda, b):
+    """P1, P3 and P4 over random int32 tables and indices (and far and near
+    floats for P4), 64 iterations."""
+    for name, args in _probe_inputs(np.random.default_rng(b), b, cuda).items():
+        before = probes.launches[name]
+        got = getattr(probes, name)(*args, 64)
+        torch.cuda.synchronize()
+        assert probes.launches[name] == before + 1
+        assert torch.equal(got, getattr(probes, name + "_plain")(*args, 64)), name
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    t = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    f = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
+    strided = torch.zeros((128, 4), dtype=torch.int32, device=cuda).t()
+    tab = torch.zeros((16, 128), dtype=torch.int32, device=cuda)
+    for fn, args in ((probes.lane_gather, (t.float(), t, 1)), (probes.lane_gather, (t, t[:3], 1)),
+                     (probes.lane_gather, (t, t[:, :64].contiguous(), 1)),
+                     (probes.lane_gather, (strided, t, 1)), (probes.lane_gather, (t.cpu(), t, 1)),
+                     (probes.lane_gather, (t, t, -1)),
+                     (probes.chain_gather, (t, t, 1)), (probes.chain_gather, (tab.long(), t, 1)),
+                     (probes.chain_gather, (tab, strided, 1)),
+                     (probes.alu_loop, (t, t, 1)), (probes.alu_loop, (t, f[:2], 1)),
+                     (probes.alu_loop, (strided, f, 1)), (probes.alu_loop, (t, f.cpu(), 1))):
+        with pytest.raises(ValueError):
+            fn(*args)

@@ -94,7 +94,7 @@ def scenes():
     out = {}
     for name, (w, h, _) in SIZES.items():
         js = _jax_scene(name, w, h)
-        out[name] = (jax.tree.map(jnp.asarray, js), scene_from_numpy(_flatten(js)))
+        out[name] = (jax.tree.map(jnp.asarray, js), scene_from_numpy(_flatten(js), device="cpu"))
     return out
 
 

@@ -76,7 +76,8 @@ def _port_cfg(jcfg):
 
 def _both(name, w, h):
     js, jcfg = _jax_scene(name, w, h)
-    return jax.tree.map(jnp.asarray, js), scene_from_numpy(_flatten(js)), jcfg, _port_cfg(jcfg)
+    return (jax.tree.map(jnp.asarray, js), scene_from_numpy(_flatten(js), device="cpu"), jcfg,
+            _port_cfg(jcfg))
 
 
 def _scanline(w, h):

@@ -45,7 +45,7 @@ torch.set_num_threads(1)
 
 
 def _both(jscene):
-    return jax.tree.map(jnp.asarray, jscene), scene_from_numpy(_flatten(jscene))
+    return jax.tree.map(jnp.asarray, jscene), scene_from_numpy(_flatten(jscene), device="cpu")
 
 
 def _rays(cfg, cam):

@@ -83,6 +83,9 @@ _SIGNATURES = {
     "vt_exit_march": [_P] * 12 + [_I] * 4 + [_P] * 6 + [_P],
     "vt_lookup_rows": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _P],
     "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _P],
+    "vt_lane_gather": [_P, _P, _I, _I, _P, _P],
+    "vt_chain_gather": [_P, _P, _I, _I, _P, _P],
+    "vt_alu_loop": [_P, _P, ctypes.c_longlong, _I, _P, _P],
 }
 
 

@@ -24,6 +24,10 @@ from voxtracer_torch.kernels.dda import (BIG, BRICK, EXIT_SMOKE, cell_index,
 
 INNER = 8  # fine steps per outer iteration
 MAX_OUTER = 1024
+# what ``tally`` counts, over [V, N] pairs: pairs tested for entry, pairs
+# whose walk starts, outer iterations (one row fetch each), descents into
+# a brick, fine cell steps and macro brick steps
+STEPS = ("entries", "walks", "rows", "descends", "cells", "bricks")
 
 
 def normals_from(r, gs_f, fwd_rows, t):
@@ -49,9 +53,10 @@ def normals_from(r, gs_f, fwd_rows, t):
     return wx * inv_len, wy * inv_len, wz * inv_len
 
 
-def _core(r, c, occ_flat, tl, active0, mode):
+def _core(r, c, occ_flat, tl, active0, mode, tally=None):
     """The fetch / descend / step loop over [P, N] pair state.  Returns the
-    final hit, t_hit, gidx, in_vol and t_out."""
+    final hit, t_hit, gidx, in_vol and t_out, and adds the walk's STEPS to
+    the dict ``tally`` if one is given."""
     is_exit = mode == "exit"
     bx, by, bz = c["bx"], c["by"], c["bz"]
     gs_f, gs_i, ms_i = c["gs_f"], c["gs_i"], c["ms_i"]
@@ -65,6 +70,15 @@ def _core(r, c, occ_flat, tl, active0, mode):
     if not is_exit:
         active = active & (t0 < tl)
     shape = active.shape
+    steps = None if tally is None else torch.zeros(len(STEPS), dtype=torch.int64,
+                                                   device=active.device)
+
+    def count(step, x):
+        if steps is not None:
+            steps[STEPS.index(step)] += x.sum()
+
+    count("entries", active0)
+    count("walks", active)
 
     def full(x):
         return x.expand(shape).clone()
@@ -105,6 +119,7 @@ def _core(r, c, occ_flat, tl, active0, mode):
         elif not is_exit:
             best = torch.where(hit, t_hit, BIG).amin(0, keepdim=True)
             active = active & (t <= best)
+        count("rows", active)
 
         # one row fetch per pair: the current brick's 512 occupancy bits
         midx = (mpx * mside + mpy) * mside + mpz
@@ -113,6 +128,7 @@ def _core(r, c, occ_flat, tl, active0, mode):
         act_m = active & ~level
         descend = act_m & occupied
         skip = act_m & ~occupied
+        count("descends", descend)
 
         # descend: (re)seed the fine DDA at t, clamped into the brick
         fpx, fpy, fpz, ftmx, ftmy, ftmz = fine_init_at(t)
@@ -131,6 +147,7 @@ def _core(r, c, occ_flat, tl, active0, mode):
         act_f = active & (level | descend)
         go_macro = torch.zeros_like(act_f)
         for _ in range(INNER):
+            count("cells", act_f)
             b = ((px - blox) * 8 + (py - bloy)) * 8 + (pz - bloz)
             word = torch.gather(rows, -1, ((b >> 5) & 15).long()[..., None])[..., 0]
             bit = (torch.bitwise_right_shift(word, b & 31) & 1) == 1
@@ -172,6 +189,7 @@ def _core(r, c, occ_flat, tl, active0, mode):
 
         # macro advance: empty-brick skips + fine walks that left a brick
         do_m = skip | go_macro
+        count("bricks", do_m)
         mx, my, mz = pick_axis(mtmx, mtmy, mtmz)
         mt_new = torch.where(mx, mtmx, torch.where(my, mtmy, mtmz))
         mpx = mpx + torch.where(do_m & mx, stx, 0)
@@ -190,18 +208,23 @@ def _core(r, c, occ_flat, tl, active0, mode):
             active = active & ~(do_m & ~(mt_new < tl))
         outer += 1
 
+    if steps is not None:
+        for step, n in zip(STEPS, steps.tolist()):
+            tally[step] = tally.get(step, 0) + n
     return dict(hit=hit, t_hit=t_hit, gidx=gidx, in_vol=in_vol, t_out=t_out)
 
 
 def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
                  ray_active, vol_enabled, occ, bricksize, mode="nearest",
-                 mode_code=None, vol_match=None):
+                 mode_code=None, vol_match=None, tally=None):
     """All rays x all volumes over occupancy bitmasks.
 
     occ: [3, V, M^3, 16] int32 (core.types OCC_* planes).  Returns per-ray
     [N] results: mode "nearest": hit, t, cell, vol, nx, ny, nz;
     "occluded": hit; "exit": in_vol, t, cell, nx, ny, nz (vol_match [N]
-    names each ray's own volume, mode_code [N] its medium)."""
+    names each ray's own volume, mode_code [N] its medium).  A dict
+    ``tally`` gains the walk's STEPS: the work these rays need, which sets
+    the kernels' operation bound."""
     v = gridsize.shape[0]
     is_exit = mode == "exit"
     dev = o.device
@@ -230,7 +253,7 @@ def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
              gs_f=gs_f, gs_i=gridsize[:, None],
              ms_f=bricksize.to(torch.float32)[:, None], ms_i=bricksize[:, None],
              side=side, mside=mside, cell_base=vids * g3, occ_base=occ_base)
-    st = _core(r, c, occ_flat, t_limit[None, :], active0, mode)
+    st = _core(r, c, occ_flat, t_limit[None, :], active0, mode, tally)
 
     if mode == "occluded":
         return dict(hit=st["hit"].any(0))

@@ -108,15 +108,15 @@ def traverse(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
 
 
 def exit_march_plain(grids_flat, gridsize, inv, fwd, cube_min, o, d,
-                     ray_active, mode_code, vol_match, occ, bricksize):
+                     ray_active, mode_code, vol_match, occ, bricksize, tally=None):
     """The plain version of ``exit_march``: dda_occ.traverse_occ in exit
-    mode, on any device."""
+    mode, on any device (``tally`` as there)."""
     dev = o.device
     return traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d,
                         torch.full((o.shape[0],), BIG, dtype=torch.float32, device=dev),
                         ray_active, torch.ones(gridsize.shape[0], dtype=torch.bool, device=dev),
                         occ, bricksize, mode="exit", mode_code=mode_code,
-                        vol_match=vol_match)
+                        vol_match=vol_match, tally=tally)
 
 
 def exit_march(grids_flat, gridsize, inv, fwd, cube_min, o, d, ray_active,

@@ -2,10 +2,10 @@
 
 ``scene_from_numpy`` takes a JAX ``SceneData`` flattened into a nested
 dict of numpy arrays under the JAX field names and returns the port's
-``Scene`` on ``device``, so both packages can render the very same
-arrays.  Fields that only feed the TPU kernels' VMEM tables
-(``occ_slot``, ``occ_rows0``, ``pal``, ``pal_rows0``, ``pages``) are
-ignored.  ``diff_params_from_numpy`` does the same for the JAX
+``Scene`` on ``device`` (the card unless the caller asks for the
+CPU), so both packages can render the very same arrays.  Fields that
+only feed the TPU kernels' VMEM tables (``occ_slot``, ``occ_rows0``,
+``pal``, ``pal_rows0``, ``pages``) are ignored.  ``diff_params_from_numpy`` does the same for the JAX
 ``DiffParams``.
 """
 
@@ -36,7 +36,7 @@ def _tensor(a, device):
     return torch.from_numpy(np.array(a, order="C", copy=True)).to(device)
 
 
-def scene_from_numpy(tree: dict, device="cpu") -> Scene:
+def scene_from_numpy(tree: dict, device="cuda") -> Scene:
     """tree: {"volumes": {"grids": ..., ...}, "materials": {...}, ...}."""
     parts = {}
     for name, cls in _RECORDS.items():
@@ -46,7 +46,7 @@ def scene_from_numpy(tree: dict, device="cpu") -> Scene:
     return Scene(**parts)
 
 
-def diff_params_from_numpy(tree: dict, device="cpu") -> DiffParams:
+def diff_params_from_numpy(tree: dict, device="cuda") -> DiffParams:
     """tree: {"density_logits": [V, G, G, G], "albedo_table": [256, 3]}."""
     return DiffParams(density_logits=_tensor(tree["density_logits"], device),
                       albedo_table=_tensor(tree["albedo_table"], device))
