@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (voxtracer_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Builds the CUDA kernels from voxtracer_torch/csrc, holds each kernel
 against its plain PyTorch version at the shapes of the main path, and
@@ -34,16 +34,24 @@ there is one.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
-version takes torch.rsqrt); lookup rows and probe results identical;
-lookup backward per entry within 1e-5 * (sum of |ct| over that entry's
-rows) + 1e-6 (both sides add with atomics, in no fixed order); forward
-images (and the
+version takes torch.rsqrt); lookup rows and probe results identical; lookup backward per entry within 1e-5 * (sum of
+|ct| over that entry's rows) + 1e-6 (the kernel adds in no fixed order;
+at the captured shapes the plan's accumulator is held to it and the
+other one's error is reported beside it); forward images (and the
 reproject history): at most 0.1% of pixels off by more than 1e-3
 (whitted's per-pixel scatter-add runs in no fixed order); gradients:
 relative L2 <= 1e-4 on both parameters and relaxed images within 1e-5.
-Kernel and plain times are CUDA-event medians of 5 runs after one warm-up
-(3 for the probes' plain loops); step times are host clocks around
-synchronised runs, 1 warm-up and 3 reps.
+Kernel, plain and library times are per launch (``per_launch``): R
+back-to-back calls between one pair of CUDA events, R doubled until the
+window is at least 1 ms, the median of 5 windows (3 for the probes' plain
+loops) divided by R, with a spin kernel ahead of each window so that the
+events time the device; beside each, the host microseconds per call (a
+host clock around the R enqueues). K4 and K4-bwd are timed at the shapes
+and with the ids the path really makes, captured from one 1080p frame, one
+whitted 512x512 frame and one binned gradient. With ``--baseline DIR`` (an unpacked checkout of an
+earlier commit) the script also times that checkout's K4 and K4-bwd on
+the same inputs, in turns with this one's. Step times are host clocks
+around synchronised runs, 1 warm-up and 3 reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -107,23 +115,124 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=5):
-    """Median CUDA-event time of fn() in ms over `reps` runs after one
-    warm-up."""
+_CYCLES_PER_MS = []
+
+
+def _hold_stream(ms):
+    """Keep the current stream busy for about `ms` with a spin kernel."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def per_launch(fn, windows=5, min_window_ms=1.0, max_calls=512):
+    """Per-launch device time and host time of fn() -> (ms, host us).
+
+    After a warm-up, R back-to-back calls run between one pair of CUDA
+    events, R doubled from 1 until the window is at least `min_window_ms`
+    (or R reaches `max_calls`, which keeps the calls inside the launch
+    queue); then the median of `windows` such windows, divided by R.
+    Before each window a spin kernel holds the stream for twice the host
+    time the R calls took last, so the events time the device and not the
+    host's enqueue. The host time is a host clock around the R enqueues,
+    read before the synchronise (median of the windows, divided by R)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    host_ms = 0.0
+
+    def window(r):
+        nonlocal host_ms
+        _hold_stream(min(2.0 * host_ms * r + 0.2, 100.0))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(r):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        host_ms = host / r
+        return start.elapsed_time(end), host
+
+    r = 1
+    while window(r)[0] < min_window_ms and r < max_calls:
+        r *= 2
+    dev, host = zip(*(window(r) for _ in range(windows)))
+    return statistics.median(dev) / r, statistics.median(host) / r * 1e3
+
+
+def lookup_of(root):
+    """The ``voxtracer_torch.kernels.lookup`` module of another checkout at
+    `root` (an unpacked ``git archive`` of an earlier commit), imported
+    beside this one's: it builds its own kernels into `root`/build."""
+    import importlib
+
+    def ours():
+        return {m: mod for m, mod in sys.modules.items()
+                if m == "voxtracer_torch" or m.startswith("voxtracer_torch.")}
+
+    saved = ours()
+    for m in saved:
+        del sys.modules[m]
+    sys.path.insert(0, os.path.abspath(root))
+    try:
+        return importlib.import_module("voxtracer_torch.kernels.lookup")
+    finally:
+        sys.path.pop(0)
+        for m in ours():
+            del sys.modules[m]
+        sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def captured_lookups(calls):
+    """Swap recording wrappers into the bindings through which the port
+    reaches K4 and K4-bwd (the integrator's and the lookup module's own, as
+    ``plain_versions`` swaps); for each (pass, K, C) keep a copy of the
+    inputs of the largest call in `calls` (for the backward, the largest
+    whose cotangent is not all zero)."""
+    from voxtracer_torch.kernels import lookup
+    from voxtracer_torch.render import integrator
+
+    def keep(key, args):
+        n = args[1].shape[0]
+        if key not in calls or calls[key][1].shape[0] < n:
+            calls[key] = tuple(a.detach().clone() if hasattr(a, "clone") else a for a in args)
+
+    def fwd(fn):
+        def rec(tab, idx):
+            keep(("fwd", *tab.shape), (tab, idx))
+            return fn(tab, idx)
+        return rec
+
+    def bwd(fn):
+        def rec(ct, idx, k):
+            if bool(ct.any()):  # a segment of zero length passes an all-zero ct
+                keep(("bwd", k, ct.shape[1]), (ct, idx, k))
+            return fn(ct, idx, k)
+        return rec
+
+    swaps = [(integrator, "lookup_rows", fwd), (lookup, "lookup_rows", fwd),
+             (lookup, "lookup_rows_bwd", bwd)]
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, wrap in swaps:
+        setattr(mod, attr, wrap(getattr(mod, attr)))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
 
 
 def check(cond, msg):
@@ -187,9 +296,16 @@ def host_times(fn, reps=3):
     return statistics.median(times), min(times), max(times) - min(times), times
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="an unpacked checkout of another commit: time its K4 and K4-bwd "
+                         "beside this one's, in turns, at the captured path shapes")
+    baseline = ap.parse_args(argv).baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -247,15 +363,20 @@ def main() -> int:
     big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     results = []
 
-    def report(kname, source, replaces, err, ms, plain_ms, bnd, library_ms, phase=3):
+    def report(kname, source, replaces, err, kern, plain, bnd, library, phase=3, **extra):
+        """kern, plain and library are per_launch results (library may be
+        None)."""
         results.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces, launches=0, max_abs_err=err,
-                            ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                            library_ms=library_ms))
-        lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
-        log(f"[{phase}] {kname}: max_abs_err {err:.3g}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; bytes {bnd[2]:.4f} ms, "
-            f"operations {bnd[3]:.4f} ms), library {lib_txt} ({smi})")
+                            ms=kern[0], host_us=kern[1], plain_ms=plain[0],
+                            plain_host_us=plain[1], bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=library and library[0],
+                            library_host_us=library and library[1], **extra))
+        lib_txt = "none" if library is None else f"{library[0]:.4f} ms ({library[1]:.1f} us host)"
+        log(f"[{phase}] {kname}: max_abs_err {err:.3g}; per launch: kernel {kern[0]:.4f} ms "
+            f"({kern[1]:.1f} us host), plain {plain[0]:.4f} ms ({plain[1]:.1f} us host), "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}; bytes {bnd[2]:.4f} ms, operations "
+            f"{bnd[3]:.4f} ms), library {lib_txt} ({smi})")
 
     def reset_counts():
         for c in (traverse.launches, lookup.launches, probes.launches):
@@ -282,7 +403,7 @@ def main() -> int:
     # the occupancy plane it walks, and one grid cell per hit
     report("traverse_nearest", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:1048", max(nerr, max_err(k["t"], p["t"])),
-           cuda_ms(lambda: near(traverse.traverse)), cuda_ms(lambda: near(traverse_occ)),
+           per_launch(lambda: near(traverse.traverse)), per_launch(lambda: near(traverse_occ)),
            bound(nbytes(o, d, big, ones, ven, vols.occ[0], *k.values()) + 4 * hits,
                  walk_ops(tally1)), None)
 
@@ -305,7 +426,7 @@ def main() -> int:
         f"plain walk steps {tally2}")
     report("traverse_occluded", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:1048", 0.0,
-           cuda_ms(lambda: occl(traverse.traverse)), cuda_ms(lambda: occl(traverse_occ)),
+           per_launch(lambda: occl(traverse.traverse)), per_launch(lambda: occl(traverse_occ)),
            bound(nbytes(so, sd, dst, hit, ven, vols.occ[0], k2["hit"]), walk_ops(tally2)),
            None)
 
@@ -352,27 +473,19 @@ def main() -> int:
         f"{left} left their medium inside the grid; plain walk steps {tally3}")
     report("exit_march", "voxtracer_torch/csrc/traverse.cu",
            "voxtracer/kernels/pallas_dda.py:903", max(nerr3, max_err(k3["t"], p3["t"])),
-           cuda_ms(exit_k), cuda_ms(exit_p),
+           per_launch(exit_k), per_launch(exit_p),
            bound(nbytes(eo, md, emask, code, evol, mv.occ[1:], *k3.values()) + 4 * left,
                  walk_ops(tally3)), None)
 
-    # K4: the material rows of 2,073,600 rays, out-of-range indices included
+    # K4 over the material table, 2,073,600 random ids, out-of-range ones
+    # included (timed in [7], at the shapes and ids the path makes)
     m = scene.materials
     mtab = torch.cat([m.albedo, m.roughness[:, None], m.emissive[:, None],
                       m.ior[:, None]], dim=1).contiguous()
     gen = torch.Generator(device=dev).manual_seed(0)
     idx = torch.randint(-8, 264, (n,), generator=gen, device=dev, dtype=torch.int32)
-    k4, p4 = lookup.lookup_rows(mtab, idx), lookup.lookup_rows_plain(mtab, idx)
-    check(torch.equal(k4, p4), "K4 rows differ")
-    # library: the gather alone, ids pre-clamped; 3 operations per element
-    # (clamp twice, load)
-    cidx = idx.long().clamp(0, mtab.shape[0] - 1)
-    report("lookup_rows", "voxtracer_torch/csrc/lookup.cu",
-           "voxtracer/kernels/lookup.py:33", 0.0,
-           cuda_ms(lambda: lookup.lookup_rows(mtab, idx)),
-           cuda_ms(lambda: lookup.lookup_rows_plain(mtab, idx)),
-           bound(nbytes(mtab, idx, k4), 3 * k4.numel()),
-           cuda_ms(lambda: torch.index_select(mtab, 0, cidx)))
+    check(torch.equal(lookup.lookup_rows(mtab, idx), lookup.lookup_rows_plain(mtab, idx)),
+          "K4 rows differ")
 
     # ---- 4 + 5. the forward half of the main path, counted: 1080p
     # monu-like, then media
@@ -433,14 +546,18 @@ def main() -> int:
                                    f"{' + clamp' if b.clamp else ''}" for b in plan.bins)
         + f"; precompute {time.perf_counter() - t0:.1f} s")
 
-    def bwd_err(ct, idx, k):
-        got = lookup.lookup_rows_bwd(ct, idx, k)
+    def bwd_err(ct, idx, k, acc=None, hold=True):
+        """K4-bwd against its plain version -> (largest error, largest error
+        over its tolerance); fails past the tolerance if `hold`."""
+        got = lookup.lookup_rows_bwd(ct, idx, k, acc=acc)
         want = lookup.lookup_rows_bwd_plain(ct, idx, k)
         err = (got - want).abs()
-        bound = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
-        check(bool((err <= bound).all()), f"K4 backward [{k}, {ct.shape[1]}] out of tolerance")
+        tol = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
+        ratio = float((err / tol).max())
+        check(not hold or ratio <= 1.0, f"K4 backward [{k}, {ct.shape[1]}] (acc={acc}) out of "
+              f"tolerance: error {ratio:.3g} x the tolerance")
         check(float(want.abs().max()) > 0, "K4 backward: an all-zero cotangent sum")
-        return float(err.max())
+        return float(err.max()), ratio
 
     # albedo: ~10 core steps x the band's active rays, material ids as the
     # march's cell column gives them (sampled cells), then out-of-range ids
@@ -454,28 +571,109 @@ def main() -> int:
     idx_b = torch.randint(-8, k_b + 8, (core_rows,), generator=gen, device=dev,
                           dtype=torch.int32)
     ct1 = torch.randn((core_rows, 1), generator=gen, device=dev)
-    err7 = max(bwd_err(ct3, idx_m, 256), bwd_err(ct3, idx_o, 256), bwd_err(ct1, idx_b, k_b))
+    err7 = max(bwd_err(ct3, idx_m, 256)[0], bwd_err(ct3, idx_o, 256)[0],
+               bwd_err(ct1, idx_b, k_b)[0])
+
+    # K4 and K4-bwd at the shapes the path really uses, with the ids it
+    # really makes: the largest call per table shape in one 1080p frame
+    # (material [256,6], bounce 0), one whitted 512x512 frame (the queue's
+    # material [256,5], its first pass) and one binned gradient (albedo
+    # [256,3], the largest core chunk; brick sigma [2048,1], the largest
+    # lead/tail segment)
+    wscene, wcfg = glass_sphere_box(512, 512)
+    wscene = wscene.to(dev)
+    calls = {}
+    with captured_lookups(calls):
+        integrator.render_tiled(scene, cfg, key, 1, 1)
+        integrator.render_tiled(wscene, wcfg, key, 1, 1)
+        train.binned_grads(params, scene, plan)
+    torch.cuda.synchronize()
+    fwd_keys = [("fwd", 256, 6), ("fwd", 256, 5), ("fwd", 256, 3), ("fwd", k_b, 1)]
+    bwd_keys = [("bwd", 256, 3), ("bwd", k_b, 1)]
+    for key_ in fwd_keys + bwd_keys:
+        check(key_ in calls, f"no K4 call {key_} in the frame and the gradient")
+    # with --baseline: the same calls through another checkout's K4, timed
+    # in turns with this one's (baseline, this, this, baseline)
+    base = lookup_of(baseline) if baseline else None
+
+    def measure(what, run, run_base, plain, library, lib_name, bnd, variants):
+        """Per-launch times of one shape -> (kernel, plain, bound, library,
+        the shape's JSON entry); logs them beside the bound, then the
+        kernel's variants (name -> call) timed the same way."""
+        if base is None:
+            kern, turns = per_launch(run), None
+        else:
+            b0, kern, k1, b1 = (per_launch(f) for f in (run_base, run, run, run_base))
+            turns = dict(this=[kern, k1], baseline=[b0, b1])
+        plain, lib = per_launch(plain), per_launch(library)
+        txt = (f"    {what}: kernel {kern[0]:.4f} ms ({kern[1]:.1f} us host; "
+               f"{bnd[0] / kern[0]:.0%} of bound {bnd[0]:.4f} ms, {bnd[1]}), plain "
+               f"{plain[0]:.4f} ms, {lib_name} {lib[0]:.4f} ms ({lib[1]:.1f} us host)")
+        if turns:
+            seq = turns["baseline"][:1] + turns["this"] + turns["baseline"][1:]
+            txt += ("; in turns baseline, this, this, baseline: "
+                    + ", ".join(f"{ms:.4f} ms ({us:.1f} us host)" for ms, us in seq))
+        var = {name: per_launch(f) for name, f in variants.items()}
+        if var:
+            txt += "; variants " + ", ".join(f"{name} {ms:.4f} ms ({us:.1f} us host)"
+                                             for name, (ms, us) in var.items())
+        log(txt + f" ({smi})")
+        return kern, plain, bnd, lib, dict(shape=what, ms=kern[0], host_us=kern[1],
+                                           plain_ms=plain[0], bound_ms=bnd[0], bound_by=bnd[1],
+                                           library_ms=lib[0], library_host_us=lib[1],
+                                           turns=turns, variants=var)
+
+    shapes = {"lookup_rows": [], "lookup_rows_bwd": []}
+    first = {}
+    for key_ in fwd_keys:
+        tab, idx_ = calls[key_]
+        got = lookup.lookup_rows(tab, idx_)
+        check(torch.equal(got, lookup.lookup_rows_plain(tab, idx_)),
+              f"K4 rows differ at {list(tab.shape)} x {idx_.shape[0]}")
+        cidx = idx_.clamp(0, tab.shape[0] - 1)
+        *m_, entry = measure(
+            f"K4 {list(tab.shape)} x {idx_.shape[0]}", lambda: lookup.lookup_rows(tab, idx_),
+            lambda: base.lookup_rows(tab, idx_), lambda: lookup.lookup_rows_plain(tab, idx_),
+            lambda: torch.index_select(tab, 0, cidx), "index_select",
+            bound(nbytes(tab, idx_, got), 3 * got.numel()), {})  # clamp twice, load
+        shapes["lookup_rows"].append(entry)
+        first.setdefault("lookup_rows", m_)
 
     def bwd_bound(ct, idx, k):  # clamp twice and one add per element
         return bound(nbytes(ct, idx) + k * ct.shape[1] * 4, 3 * ct.numel())
 
-    def index_add_ms(ct, idx, k):
-        ci = idx.long().clamp(0, k - 1)
-        return cuda_ms(lambda: ct.new_zeros((k, ct.shape[1])).index_add_(0, ci, ct))
-
-    for what, ct_, idx_, k_ in (("albedo [256,3]", ct3, idx_m, 256),
-                                ("brick sigma", ct1, idx_b, k_b)):
-        bnd = bwd_bound(ct_, idx_, k_)
-        log(f"    K4 backward, {what} x {idx_.shape[0]} rows: kernel "
-            f"{cuda_ms(lambda: lookup.lookup_rows_bwd(ct_, idx_, k_)):.3f} ms, plain (f64 "
-            f"index_add_) {cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct_, idx_, k_)):.3f} ms, "
-            f"f32 index_add_ {index_add_ms(ct_, idx_, k_):.3f} ms, bound {bnd[0]:.4f} ms "
-            f"({bnd[1]}) ({smi})")
-    report("lookup_rows_bwd", "voxtracer_torch/csrc/lookup.cu",
-           "voxtracer/diff/volumetric.py:95", err7,
-           cuda_ms(lambda: lookup.lookup_rows_bwd(ct3, idx_m, 256)),
-           cuda_ms(lambda: lookup.lookup_rows_bwd_plain(ct3, idx_m, 256)),
-           bwd_bound(ct3, idx_m, 256), index_add_ms(ct3, idx_m, 256), phase=7)
+    for key_ in bwd_keys:
+        ct_, idx_, kk = calls[key_]
+        # the plan's accumulator is held to the tolerance; the other one's
+        # error is reported beside it
+        planned = lookup.bwd_plan(ct_.shape[0], kk, ct_.shape[1], lookup.device_consts(0)[0])[0]
+        errs = {v: bwd_err(ct_, idx_, kk, v, hold=v == planned) for v in ("shared", "direct")}
+        err7 = max(err7, errs[planned][0])
+        n_ = idx_.shape[0]
+        cnt = torch.unique(idx_.clamp(0, kk - 1), return_counts=True)[1]
+        log(f"    K4-bwd [{kk}, {ct_.shape[1]}] x {idx_.shape[0]}: plan acc={planned}; error / "
+            f"tolerance " + ", ".join(f"acc={v} {r:.3g}" for v, (_, r) in errs.items())
+            + f"; {cnt.numel()} distinct ids, the commonest on {float(cnt.max()) / n_:.1%} of "
+            f"the rows; {float((ct_ != 0).any(1).float().mean()):.1%} of the rows non-zero, sum "
+            f"of |ct| {float(ct_.abs().sum()):.6g}")
+        acc = ct_.new_zeros((kk, ct_.shape[1]))
+        cidx = idx_.clamp(0, kk - 1)
+        *m_, entry = measure(
+            f"K4-bwd [{kk}, {ct_.shape[1]}] x {idx_.shape[0]}",
+            lambda: lookup.lookup_rows_bwd(ct_, idx_, kk),
+            lambda: base.lookup_rows_bwd(ct_, idx_, kk),
+            lambda: lookup.lookup_rows_bwd_plain(ct_, idx_, kk),
+            lambda: acc.index_add_(0, cidx, ct_), "f32 index_add_", bwd_bound(ct_, idx_, kk),
+            {f"acc={v}": functools.partial(lookup.lookup_rows_bwd, ct_, idx_, kk, acc=v)
+             for v in ("shared", "direct")})
+        shapes["lookup_rows_bwd"].append(entry)
+        first.setdefault("lookup_rows_bwd", m_)
+    # each JSON entry: the first shape (material [256,6]; albedo [256,3]),
+    # the others under "shapes"
+    for kname, replaces, err in (("lookup_rows", "voxtracer/kernels/lookup.py:33", 0.0),
+                                 ("lookup_rows_bwd", "voxtracer/diff/volumetric.py:95", err7)):
+        report(kname, "voxtracer_torch/csrc/lookup.cu", replaces, err, *first[kname], phase=7,
+               shapes=shapes[kname])
 
     # ---- 8. the gradient half of the main path, counted, then the fused
     # step (forward frame + gradient) timed
@@ -555,8 +753,6 @@ def main() -> int:
 
     # ---- 11. whitted: glass_sphere_box at 512x512, depth 5, through the
     # branch queue
-    wscene, wcfg = glass_sphere_box(512, 512)
-    wscene = wscene.to(dev)
     reset_counts()
     wimg = integrator.render_tiled(wscene, wcfg, key, 1, 1)
     torch.cuda.synchronize()
@@ -629,10 +825,10 @@ def main() -> int:
     # the jax.random streams one bounce draws: uniform (n,2), (n,3), (n,)
     # and normal (n,3) twice
     tk = fold_in(key, 5)
-    rng_ms = (cuda_ms(lambda: threefry_uniform(tk, (n, 2), dev))
-              + cuda_ms(lambda: threefry_uniform(tk, (n, 3), dev))
-              + cuda_ms(lambda: threefry_uniform(tk, (n,), dev))
-              + 2 * cuda_ms(lambda: threefry_normal(tk, (n, 3), dev)))
+    rng_ms = (per_launch(lambda: threefry_uniform(tk, (n, 2), dev))[0]
+              + per_launch(lambda: threefry_uniform(tk, (n, 3), dev))[0]
+              + per_launch(lambda: threefry_uniform(tk, (n,), dev))[0]
+              + 2 * per_launch(lambda: threefry_normal(tk, (n, 3), dev))[0])
     log(f"[13] threefry streams of one 1080p bounce: {rng_ms:.2f} ms of device time "
         f"(x {rcfg.max_bounces + 1} bounces at most) ({smi})")
     mrcfg = dataclasses.replace(mcfg, mode="reproject")
@@ -696,7 +892,8 @@ def main() -> int:
             if b != 256:
                 continue
             report(pname, "voxtracer_torch/csrc/probes.cu", probe_src[pid], 0.0,
-                   cuda_ms(lambda: kern(*args, it)), cuda_ms(lambda: plain(*args, it), reps=3),
+                   per_launch(lambda: kern(*args, it)),
+                   per_launch(lambda: plain(*args, it), windows=3),
                    bound(nbytes(*args, got), probe.COUNTS[pid][2] * it * got.numel()), None,
                    phase=15)
     log(f"[15] lane_gather, chain_gather, alu_loop equal their plain versions at B = 32, "

@@ -138,24 +138,124 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         traverse.traverse(*vargs, o.t().contiguous().t(), d, tl, act, ven, occ, bsz)
     with pytest.raises(ValueError):
         traverse.traverse(*vargs, o, d, tl.cpu(), act, ven, occ, bsz)
-    with pytest.raises(ValueError):
-        lookup.lookup_rows(torch.zeros((256, 6), device=cuda), torch.zeros(4, device=cuda))
-    ct = torch.zeros((4, 3), device=cuda)
+    tab = torch.zeros((256, 6), device=cuda)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda)
-    for bad in ((ct.double(), idx, 256), (ct, idx.long(), 256), (ct, idx[:3], 256),
-                (ct.t().contiguous().t(), idx, 256), (ct, idx.cpu(), 256),
-                (ct[:, :1].contiguous(), idx, 64 * 1024)):  # 256 KB: past any block
+    for bad in ((tab, torch.zeros(4, device=cuda)), (tab, idx[None]),
+                (tab, torch.zeros(8, dtype=torch.int32, device=cuda)[::2]),
+                (tab.double(), idx), (tab.cpu(), idx), (tab.t(), idx),
+                (torch.zeros((4, 64), device=cuda), idx)):  # 64 floats a row: slabs past a block
         with pytest.raises(ValueError):
-            lookup.lookup_rows_bwd(*bad)
+            lookup.lookup_rows(*bad)
+    ct = torch.zeros((4, 3), device=cuda)
+    for bad, kw in (((ct.double(), idx, 256), {}), ((ct, idx.long(), 256), {}),
+                    ((ct, idx[:3], 256), {}), ((ct.t().contiguous().t(), idx, 256), {}),
+                    ((ct, idx.cpu(), 256), {}), ((ct, idx, 0), {}),
+                    ((ct, idx, 256), {"acc": "global"}),
+                    ((ct[:, :1].contiguous(), idx, 64 * 1024), {"acc": "shared"})):
+        with pytest.raises(ValueError):
+            lookup.lookup_rows_bwd(*bad, **kw)
 
 
-def _hold_bwd(ct, idx, k):
-    got = lookup.lookup_rows_bwd(ct, idx, k)
+def _hold_bwd(ct, idx, k, acc=None):
+    got = lookup.lookup_rows_bwd(ct, idx, k, acc=acc)
     want = lookup.lookup_rows_bwd_plain(ct, idx, k)
     bound = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
     torch.cuda.synchronize()
     assert bool(((got - want).abs() <= bound).all())
-    assert float(want.abs().max()) > 0
+    assert float(want.abs().max()) > 0 or not bool(ct.any())
+    return got
+
+
+def _ids(rng, n, k, spread, offset, dev):
+    """n int32 ids for a [k, .] table as a view at storage offset `offset`:
+    all on one entry, on a few (the albedo rows' pattern, out-of-range ones
+    included), or spread over the table and past both ends."""
+    if spread == "one":
+        ids = np.full(n + offset, k // 3)
+    elif spread == "few":
+        ids = rng.choice([-5, 0, 2, 7, k - 1, k + 9], n + offset, p=[.05, .1, .1, .15, .55, .05])
+    else:
+        ids = rng.integers(-8, k + 8, n + offset)
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)[offset:]
+
+
+@pytest.mark.parametrize("c", [1, 3, 5, 6, 7, 16])
+def test_lookup_kernel_widths_offsets_and_sizes(cuda, c):
+    """K4 at the path's widths 1, 3, 5, 6 and the generic ones 7 and 16, with
+    ids at storage offsets 0-3 (a misaligned head for the 16-byte loads),
+    n from 0 to a ragged 100,003, and a NaN row: bit for bit."""
+    rng = np.random.default_rng(c)
+    tab_np = rng.uniform(-1, 1, (256, c)).astype(np.float32)
+    tab_np[7] = np.nan
+    tab = torch.from_numpy(tab_np).to(cuda)
+    for offset in (0, 1, 2, 3):
+        for n in (0, 1, 31, 33, 127, 129, 1027, 100_003):
+            for spread in ("few", "spread"):
+                idx = _ids(rng, n, 256, spread, offset, cuda)
+                assert idx.storage_offset() == offset
+                got = lookup.lookup_rows(tab, idx)
+                torch.cuda.synchronize()
+                want = lookup.lookup_rows_plain(tab, idx)
+                assert got.shape == (n, c)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (offset, n)
+
+
+@pytest.mark.parametrize("acc", ["shared", "direct", None])
+@pytest.mark.parametrize("c", [1, 3, 5, 6, 7, 16])
+def test_lookup_bwd_widths_accumulators_and_contention(cuda, c, acc):
+    """K4-bwd with each accumulator forced (and the plan's), at the path's
+    widths and generic ones, ids all on one entry (the worst contention), on
+    a few and spread, offsets 0-3, n from 0 to 200,003, with and without
+    rows of zeros (most of the brick-sigma rows are; -0.0 among them).  A
+    forced shared accumulator whose 8 warp copies do not fit a block is
+    refused."""
+    rng = np.random.default_rng(100 + c)
+    for k in (256, 2048):
+        if acc == "shared" and 32 * k * c > lookup.smem_limit(cuda):
+            with pytest.raises(ValueError):
+                lookup.lookup_rows_bwd(torch.zeros((4, c), device=cuda),
+                                       torch.zeros(4, dtype=torch.int32, device=cuda), k, acc)
+            continue
+        for offset, n in ((0, 0), (1, 1), (2, 31), (3, 33), (0, 1027), (1, 200_003)):
+            for spread in ("one", "few", "spread"):
+                for zeros in (0.0, 0.9):
+                    idx = _ids(rng, n, k, spread, offset, cuda)
+                    ct_np = rng.normal(size=(n, c)).astype(np.float32)
+                    ct_np[rng.uniform(size=n) < zeros] = 0.0
+                    ct_np[rng.uniform(size=n) < zeros / 10] = -0.0
+                    ct = torch.from_numpy(ct_np).to(cuda)
+                    got = _hold_bwd(ct, idx, k, acc)
+                    assert got.shape == (k, c)
+
+
+def test_lookup_bwd_holds_one_signed_rows_at_the_albedo_shape(cuda):
+    """2,918,400 albedo rows of one sign (the march's are: its loss pulls
+    every pixel the same way), most on one id: the plan's accumulator adds
+    each entry's global sum in a short chain of f32 adds."""
+    rng = np.random.default_rng(6)
+    n, k = 2_918_400, 256
+    assert lookup.bwd_plan(n, k, 3, torch.cuda.get_device_properties(cuda).multi_processor_count
+                           )[0] == "shared"
+    idx = _ids(rng, n, k, "few", 0, cuda)
+    ct = torch.from_numpy(rng.uniform(0.5, 1.5, (n, 3)).astype(np.float32)).to(cuda)
+    _hold_bwd(ct, idx, k)
+
+
+@pytest.mark.parametrize("acc", ["shared", "direct"])
+def test_lookup_bwd_nan_cotangent_reaches_its_entry(cuda, acc):
+    rng = np.random.default_rng(5)
+    n, k = 50_000, 256
+    idx = _ids(rng, n, k, "few", 0, cuda)
+    ct = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(cuda)
+    ct[1234, 1] = float("nan")
+    got = lookup.lookup_rows_bwd(ct, idx, k, acc=acc)
+    want = lookup.lookup_rows_bwd_plain(ct, idx, k)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[int(idx[1234].clamp(0, k - 1)), 1]))
+    ok = ~torch.isnan(want)
+    bound = 1e-5 * lookup.lookup_rows_bwd_plain(ct.abs(), idx, k) + 1e-6
+    assert bool(((got - want).abs()[ok] <= bound[ok]).all())
 
 
 @pytest.mark.parametrize("k,c,lo,hi", [(256, 3, 0, 16), (256, 3, -8, 264), (2048, 1, -8, 2056)])
@@ -172,17 +272,22 @@ def test_lookup_bwd_kernel_matches_plain(cuda, k, c, lo, hi):
 
 
 def test_lookup_takes_tables_past_48kb(cuda):
-    """The brick-sigma table of 64 volumes of 64^3: [64 * 512, 1] f32,
-    128 KB of shared memory per block."""
-    k = 64 * 512
-    assert lookup.smem_limit(cuda) >= k * 4
+    """The brick-sigma table of 64 volumes of 64^3 ([64 * 512, 1] f32,
+    128 KB, read through L1) and a 1M-entry one, then the backward's
+    shared accumulator at the device's shared-memory opt-in limit (8 warp
+    copies of the table a block) and one entry past it."""
+    k_bwd = lookup.smem_limit(cuda) // (4 * lookup.THREADS // 32)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    tab = torch.rand((k, 1), generator=gen, device=cuda)
-    idx = torch.randint(-8, k + 8, (300_007,), generator=gen, device=cuda, dtype=torch.int32)
-    got = lookup.lookup_rows(tab, idx)
-    torch.cuda.synchronize()
-    assert torch.equal(got, lookup.lookup_rows_plain(tab, idx))
-    _hold_bwd(torch.randn((idx.shape[0], 1), generator=gen, device=cuda), idx, k)
+    for k in (k_bwd, 64 * 512, 1 << 20):
+        tab = torch.rand((k, 1), generator=gen, device=cuda)
+        idx = torch.randint(-8, k + 8, (300_007,), generator=gen, device=cuda, dtype=torch.int32)
+        assert torch.equal(lookup.lookup_rows(tab, idx), lookup.lookup_rows_plain(tab, idx))
+        ct = torch.randn((idx.shape[0], 1), generator=gen, device=cuda)
+        for acc in ("shared", "direct") if k <= k_bwd else ("direct",):
+            _hold_bwd(ct, idx, k, acc)
+        if k > k_bwd:
+            with pytest.raises(ValueError):
+                lookup.lookup_rows_bwd(ct, idx, k, acc="shared")
 
 
 def test_gradient_kernels_match_plain(cuda):

@@ -1,41 +1,65 @@
 """Clipped row lookup ``tab[clip(idx, 0, K - 1)]`` over a small table and
 its adjoint (counterpart of voxtracer/kernels/lookup.py and of the row
 gathers' custom adjoints in voxtracer/diff/volumetric.py), served on the
-card by the shared-memory kernels of csrc/lookup.cu.  A CUDA tensor goes
-through the kernel; a CPU tensor through the ``*_plain`` version.
-``LookupRows`` puts both under autograd."""
+card by the kernels of csrc/lookup.cu.  A CUDA tensor goes through the
+kernel; a CPU tensor through the ``*_plain`` version.  ``LookupRows`` puts
+both under autograd.  ``fwd_blocks`` and ``bwd_plan`` size the grids and
+pick the backward's accumulator from the shapes and the SM count alone, so
+the CPU tests reach them."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from voxtracer_torch.kernels import build
 
-MAX_BLOCKS = 132 * 16     # forward grid-stride cap: 16 blocks per SM of an H100
-BWD_MAX_BLOCKS = 132 * 4  # backward cap: each block flushes its own K x C copy
+THREADS = 256            # threads a block (csrc/lookup.cu kThreads)
+SLAB_ROWS = 128          # rows a warp takes a step (kSlab: 4 a lane)
+FWD_BLOCKS_PER_SM = 4    # forward: the persistent grid (its launch bounds)
+BWD_BLOCKS_PER_SM = 4    # backward: the persistent grid
+PRIV_MAX_BYTES = 48 * 1024  # the most shared memory a block's private copies take
 
 launches = {"lookup_rows": 0, "lookup_rows_bwd": 0}
 
 
+@functools.cache
+def device_consts(index: int) -> tuple[int, int]:
+    """(SM count, dynamic shared-memory opt-in in bytes) of CUDA device
+    `index`, read once; the first call also lets every lookup kernel take
+    that much shared memory there."""
+    props = torch.cuda.get_device_properties(index)
+    with torch.cuda.device(index):
+        build.check(build.lib().vt_lookup_init(props.shared_memory_per_block_optin),
+                    "lookup_init")
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
 def smem_limit(device: torch.device) -> int:
     """The most dynamic shared memory one block may take on `device`, in
-    bytes (227 KB on an H100): the largest table the kernels hold."""
-    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    bytes (227 KB on an H100)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return device_consts(index)[1]
 
 
-def _check_table(k, c, device):
-    if k == 0 or k * c * 4 > smem_limit(device):
-        raise ValueError(f"table of {k}x{c} f32 does not fit one block's shared memory "
-                         f"({smem_limit(device)} bytes)")
+def fwd_blocks(n: int, sms: int) -> int:
+    """The forward's grid for n rows: one 128-row slab per warp, at most
+    FWD_BLOCKS_PER_SM blocks an SM (each warp then walks several slabs)."""
+    warps = -(-n // SLAB_ROWS)
+    return max(1, min(-(-warps // (THREADS // 32)), sms * FWD_BLOCKS_PER_SM))
 
 
-def _check_idx(idx, n=None):
-    if idx.dtype != torch.int32 or idx.dim() != 1:
-        raise ValueError("idx: expected a 1-D int32 tensor")
-    if n is not None and idx.shape[0] != n:
-        raise ValueError(f"idx: {idx.shape[0]} rows, expected {n}")
-    if not idx.is_contiguous():
-        raise ValueError("idx must be contiguous")
+def bwd_plan(n: int, k: int, c: int, sms: int) -> tuple[str, int]:
+    """The backward's accumulator and grid for n cotangent rows of width c
+    into a [k, c] table -> ("shared" or "direct", blocks).  Each warp
+    privatises a k x c copy only where a block's 8 copies fit
+    PRIV_MAX_BYTES and each block's share of the rows is at least k (many
+    rows per entry: the albedo rows); otherwise the group sums go straight
+    to the output (few rows per entry: the brick-sigma rows)."""
+    blocks = max(1, min(-(-n // (SLAB_ROWS * THREADS // 32)), sms * BWD_BLOCKS_PER_SM))
+    shared = 4 * k * c * THREADS // 32 <= PRIV_MAX_BYTES and n >= k * blocks
+    return ("shared" if shared else "direct"), blocks
 
 
 def lookup_rows_plain(tab, idx):
@@ -45,24 +69,29 @@ def lookup_rows_plain(tab, idx):
 
 def lookup_rows(tab, idx):
     """Row gather ``tab[clip(idx)]``: tab [K, C] f32, idx [N] i32 -> [N, C]."""
-    if idx.device.type == "cpu":
-        return lookup_rows_plain(tab, idx)
-    if idx.device.type != "cuda":
+    if not idx.is_cuda:
+        if idx.is_cpu:
+            return lookup_rows_plain(tab, idx)
         raise ValueError(f"no lookup for device {idx.device}")
-    dev = idx.device
-    if tab.device != dev or tab.dtype != torch.float32 or tab.dim() != 2:
-        raise ValueError("tab: expected a 2-D float32 tensor on the index's device")
-    _check_idx(idx)
-    if not tab.is_contiguous():
-        raise ValueError("tab must be contiguous")
+    index = idx.get_device()  # the checks read cheap attributes: they run every call
+    if tab.dtype != torch.float32 or tab.dim() != 2 or not tab.is_contiguous() \
+            or tab.get_device() != index:
+        raise ValueError("tab: expected a contiguous 2-D float32 tensor on the index's device")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError("idx: expected a contiguous 1-D int32 tensor")
     k, c = tab.shape
-    _check_table(k, c, dev)
+    if k == 0 or c == 0 or k * c >= 2 ** 31:
+        raise ValueError(f"tab: cannot look up rows of a {k}x{c} table")
+    sms, limit = device_consts(index)
+    if 4 * c * SLAB_ROWS * THREADS // 32 > limit:  # the output slabs of a block
+        raise ValueError(f"rows of {c} floats need more than the device's {limit} bytes of "
+                         f"shared memory a block")
     n = idx.shape[0]
-    out = torch.empty((n, c), dtype=torch.float32, device=dev)
-    status = build.lib().vt_lookup_rows(
-        tab.data_ptr(), k, c, idx.data_ptr(), n, out.data_ptr(), MAX_BLOCKS,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "lookup_rows")
+    out = torch.empty((n, c), dtype=torch.float32, device=idx.device)
+    build.check(build.lib().vt_lookup_rows(
+        tab.data_ptr(), k, c, idx.data_ptr(), n, out.data_ptr(), fwd_blocks(n, sms),
+        # the current stream as an int, without building a Stream object
+        torch._C._cuda_getCurrentRawStream(index)), "lookup_rows")
     launches["lookup_rows"] += 1
     return out
 
@@ -77,26 +106,35 @@ def lookup_rows_bwd_plain(ct, idx, k):
     return acc.index_add_(0, torch.clamp(idx.long(), 0, k - 1), ct.double()).to(ct.dtype)
 
 
-def lookup_rows_bwd(ct, idx, k):
+def lookup_rows_bwd(ct, idx, k, acc=None):
     """The table cotangent of ``lookup_rows``: ct [N, C] f32, idx [N] i32
-    -> [K, C] f32, summed with atomics (no fixed order)."""
-    if ct.device.type == "cpu":
-        return lookup_rows_bwd_plain(ct, idx, k)
-    if ct.device.type != "cuda":
+    -> [K, C] f32, summed with atomics (no fixed order).  `acc` forces the
+    accumulator ("shared" or "direct"; default: ``bwd_plan``'s)."""
+    if not ct.is_cuda:
+        if ct.is_cpu:
+            return lookup_rows_bwd_plain(ct, idx, k)
         raise ValueError(f"no lookup backward for device {ct.device}")
-    dev = ct.device
+    index = ct.get_device()
     if ct.dtype != torch.float32 or ct.dim() != 2 or not ct.is_contiguous():
         raise ValueError("ct: expected a contiguous 2-D float32 tensor")
-    if idx.device != dev:
-        raise ValueError(f"idx: on {idx.device}, expected {dev}")
     n, c = ct.shape
-    _check_idx(idx, n)
-    _check_table(k, c, dev)
-    out = torch.zeros((k, c), dtype=torch.float32, device=dev)
-    status = build.lib().vt_lookup_rows_bwd(
-        ct.data_ptr(), n, c, idx.data_ptr(), k, out.data_ptr(), BWD_MAX_BLOCKS,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(status, "lookup_rows_bwd")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous() \
+            or idx.shape[0] != n or idx.get_device() != index:
+        raise ValueError(f"idx: expected a contiguous 1-D int32 tensor of {n} rows on {ct.device}")
+    if k <= 0 or c == 0 or k * c >= 2 ** 31:
+        raise ValueError(f"cannot sum rows into a {k}x{c} table")
+    sms, limit = device_consts(index)
+    plan, blocks = bwd_plan(n, k, c, sms)
+    acc = acc or plan
+    if acc != "shared" and acc != "direct":
+        raise ValueError(f"acc: {acc!r}, expected 'shared' or 'direct'")
+    if acc == "shared" and 4 * k * c * THREADS // 32 > limit:
+        raise ValueError(f"{THREADS // 32} copies of a {k}x{c} accumulator need more than the "
+                         f"device's {limit} bytes of shared memory a block")
+    out = torch.empty((k, c), dtype=torch.float32, device=ct.device)
+    build.check(build.lib().vt_lookup_rows_bwd(
+        ct.data_ptr(), n, c, idx.data_ptr(), k, out.data_ptr(), acc == "shared", blocks,
+        torch._C._cuda_getCurrentRawStream(index)), "lookup_rows_bwd")
     launches["lookup_rows_bwd"] += 1
     return out
 
