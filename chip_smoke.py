@@ -28,9 +28,10 @@ kernels are compared with ones through the plain versions.  Beside each
 kernel's time stand its bound, the larger of its bytes over 3.35 TB/s and
 its 32-bit operations over 67 T/s (the H100's HBM and fp32 peaks; for
 the walks of K1-K3 the operations are the plain walk's step counts on the
-same rays times each step's operations counted from csrc/traverse.cu),
-and the time of one PyTorch call that computes the same function, where
-there is one.
+same rays times each step's operations counted from csrc/traverse.cu, and
+for K1 and K2 only the work the call needs at least: see
+``least_traversal_ops``), and the time of one PyTorch call that computes
+the same function, where there is one.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
@@ -46,12 +47,16 @@ back-to-back calls between one pair of CUDA events, R doubled until the
 window is at least 1 ms, the median of 5 windows (3 for the probes' plain
 loops) divided by R, with a spin kernel ahead of each window so that the
 events time the device; beside each, the host microseconds per call (a
-host clock around the R enqueues). K4 and K4-bwd are timed at the shapes
-and with the ids the path really makes, captured from one 1080p frame, one
-whitted 512x512 frame and one binned gradient. With ``--baseline DIR`` (an unpacked checkout of an
-earlier commit) the script also times that checkout's K4 and K4-bwd on
-the same inputs, in turns with this one's. Step times are host clocks
-around synchronised runs, 1 warm-up and 3 reps.
+host clock around the R enqueues). K1, K2, K4 and K4-bwd are also timed
+on the calls the path really makes, captured from one 1080p frame, one
+whitted 512x512 frame and one binned gradient: K1 and K2 on every call,
+each held against the plain version (whose walk steps give the call's
+bound); K4 and K4-bwd at the largest call of each table shape.  With ``--baseline DIR`` (an
+unpacked checkout of an earlier commit) the script also times that
+checkout's K1, K2, K4 and K4-bwd on the same inputs, in turns with this
+one's (baseline, this, this, baseline), prints its ptxas report, and
+times the 1080p frame with its K1/K2 swapped in, in turns. Step times are
+host clocks around synchronised runs, 1 warm-up and 3 reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -68,6 +73,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,11 +85,16 @@ OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 # 32-bit operations per unit of the walk of csrc/traverse.cu, counted from
 # its source (each add, multiply, compare, select, logic op, load,
 # conversion or division one), per unit of dda_occ.STEPS: the entry test
-# of a (ray, volume) pair (object_ray + entry_t), a walk's set-up
-# (object_ray and entry_t again, six setup_axis), an outer iteration
-# (brick index, 64-byte row read, OR), a descent (three axes re-seeded), a
-# fine cell step and a macro brick step
-WALK_OPS = dict(entries=120, walks=240, rows=30, descends=54, cells=41, bricks=17)
+# of a (ray, volume) pair (object_ray + entry_t), a walk's set-up (six
+# setup_axis and the volume's sizes; the walk reuses the entry test's
+# object-space ray, whose 54 operations are the entry test's), an outer
+# iteration (brick index and one bit of the brick bitmask), a descent
+# (three axes re-seeded), a fine cell step and a macro brick step
+WALK_OPS = dict(entries=120, walks=146, rows=12, descends=54, cells=41, bricks=17)
+# operations of a world-space slab test of one (ray, volume) pair, the
+# least that tells whether a ray may enter a volume: six subtract-multiply
+# pairs, a min and a max per axis, four to combine them, two compares
+BOX_OPS = 24
 
 
 def log(*a):
@@ -172,10 +183,10 @@ def per_launch(fn, windows=5, min_window_ms=1.0, max_calls=512):
     return statistics.median(dev) / r, statistics.median(host) / r * 1e3
 
 
-def lookup_of(root):
-    """The ``voxtracer_torch.kernels.lookup`` module of another checkout at
-    `root` (an unpacked ``git archive`` of an earlier commit), imported
-    beside this one's: it builds its own kernels into `root`/build."""
+def _module_of(root, name):
+    """Module `name` of the package of another checkout at `root` (an
+    unpacked ``git archive`` of an earlier commit), imported beside this
+    one's: it builds its own kernels into `root`/build."""
     import importlib
 
     def ours():
@@ -187,12 +198,71 @@ def lookup_of(root):
         del sys.modules[m]
     sys.path.insert(0, os.path.abspath(root))
     try:
-        return importlib.import_module("voxtracer_torch.kernels.lookup")
+        return importlib.import_module(name)
     finally:
         sys.path.pop(0)
         for m in ours():
             del sys.modules[m]
         sys.modules.update(saved)
+
+
+def lookup_of(root):
+    """The ``voxtracer_torch.kernels.lookup`` module of the checkout at `root`."""
+    return _module_of(root, "voxtracer_torch.kernels.lookup")
+
+
+def traverse_of(root):
+    """The ``voxtracer_torch.kernels.traverse`` module of the checkout at
+    `root`; its ``traverse`` takes explicit t_limit and vol_enabled tensors."""
+    return _module_of(root, "voxtracer_torch.kernels.traverse")
+
+
+def in_turns(run, run_base):
+    """Per-launch times of run (and, with run_base, run_base in turns:
+    baseline, this, this, baseline) -> (this one's (ms, host us), the turns
+    dict or None)."""
+    if run_base is None:
+        return per_launch(run), None
+    b0, k0, k1, b1 = (per_launch(f) for f in (run_base, run, run, run_base))
+    return k0, dict(this=[k0, k1], baseline=[b0, b1])
+
+
+def turns_text(turns):
+    if not turns:
+        return ""
+    seq = turns["baseline"][:1] + turns["this"] + turns["baseline"][1:]
+    return ("; in turns baseline, this, this, baseline: "
+            + ", ".join(f"{ms:.4f} ms ({us:.1f} us host)" for ms, us in seq))
+
+
+def ptxas_functions(text):
+    """ptxas' -v report (the build's .log) per compiled function -> a list
+    of dicts (name, stack, spill_stores, spill_loads, registers); the
+    instances of traverse_kernel<mode> are named so."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled = m.group(1)
+            t = re.search(r"traverse_kernelILi(\d+)E", mangled)
+            if t:
+                name = f"traverse_kernel<{('nearest', 'occluded')[int(t.group(1))]}>"
+            else:
+                k = re.search(r"([a-z][a-z0-9_]*kernel[a-z0-9_]*)", mangled)
+                name = k.group(1) if k else mangled
+            cur = dict(name=name)
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 @contextlib.contextmanager
@@ -235,6 +305,141 @@ def captured_lookups(calls):
             setattr(mod, attr, fn)
 
 
+# the ray-side arguments of traverse(): o, d, t_limit, ray_active, vol_enabled
+RAY_ARGS = range(5, 10)
+
+
+@contextlib.contextmanager
+def captured_traversals(calls):
+    """Swap recording wrappers into the bindings through which the port
+    reaches K1 and K2 (the integrator's and the relaxed march's, as
+    ``plain_versions`` swaps) and append each call to `calls` as (mode,
+    args): a copy of its ray-side arguments (None kept), the scene's
+    tensors as they are."""
+    from voxtracer_torch.diff import volumetric
+    from voxtracer_torch.render import integrator
+
+    def wrap(fn):
+        def rec(*args, mode="nearest"):
+            calls.append((mode, tuple(a.detach().clone() if i in RAY_ARGS and a is not None
+                                      else a for i, a in enumerate(args))))
+            return fn(*args, mode=mode)
+        return rec
+
+    kept = [(mod, mod.traverse) for mod in (integrator, volumetric)]
+    for mod, fn in kept:
+        mod.traverse = wrap(fn)
+    try:
+        yield calls
+    finally:
+        for mod, fn in kept:
+            mod.traverse = fn
+
+
+def explicit(args):
+    """traverse() arguments with t_limit None as BIG and vol_enabled None
+    as every volume (what an earlier checkout's traverse takes)."""
+    import torch
+
+    from voxtracer_torch.kernels.dda import BIG
+
+    a = list(args)
+    if a[7] is None:
+        a[7] = torch.full((a[5].shape[0],), BIG, dtype=torch.float32, device=a[5].device)
+    if a[9] is None:
+        a[9] = torch.ones(a[1].shape[0], dtype=torch.bool, device=a[5].device)
+    return tuple(a)
+
+
+def same_traversal(k, p, what):
+    """K1's or K2's result k against its plain version's p: hit, vol and
+    cell identical, t within 1e-6, normals within 1e-5 -> the largest
+    error of t and the normals."""
+    import torch
+
+    fields = ("hit",) if len(k) == 1 else ("hit", "vol", "cell")
+    for f in fields:
+        check(torch.equal(k[f], p[f].to(k[f].dtype)), f"{what}: {f} differs")
+    if len(k) == 1:
+        return 0.0
+    check(torch.allclose(k["t"], p["t"], rtol=1e-6, atol=1e-6), f"{what}: t")
+    nerr = max(max_err(k[c], p[c]) for c in ("nx", "ny", "nz"))
+    check(nerr <= 1e-5, f"{what}: normals {nerr}")
+    return max(nerr, max_err(k["t"], p["t"]))
+
+
+def least_traversal_ops(args, mode, out):
+    """The operations one K1 or K2 call needs at least, from the plain walk
+    of each enabled volume alone (per-ray step counts, so no volume's walk
+    is cut short or lengthened by another's): per active ray,
+    * K1: a box test per enabled volume, then the entry test and the walk
+      of each volume the ray enters no later than its nearest hit, each
+      walk only up to that hit (the limit just above it, as the kernel's);
+    * K2, a ray that is occluded: one box test, the entry test and the walk
+      to its hit of the volume where that costs least;
+    * K2, a ray that is not: a box test per enabled volume, then the entry
+      test and the walk to t_limit of every volume it enters before it.
+    -> (operations, the per-step counts summed over what was counted)."""
+    import torch
+
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.kernels.dda import BIG
+    from voxtracer_torch.kernels.dda_occ import STEPS
+
+    g, gs, inv, fwd, cmin, o, d, tl, act, ven, occ, bsz = args
+    v, n = gs.shape[0], o.shape[0]
+    if tl is None:
+        tl = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
+    if mode == "nearest":
+        above = torch.nextafter(out["t"], torch.full_like(out["t"], math.inf))
+        tl = torch.where(out["hit"], torch.minimum(tl, above), tl)
+    g3 = g.shape[0] // v
+    costs, hits, steps = [], [], []
+    for i in range(v):
+        if ven is not None and not bool(ven[i]):
+            continue
+        rt = {}
+        r = traverse.traverse_plain(g[i * g3:(i + 1) * g3], gs[i:i + 1], inv[i:i + 1],
+                                    fwd[i:i + 1], cmin[i:i + 1], o, d, tl, act, None,
+                                    occ[:, i:i + 1], bsz[i:i + 1], mode="occluded", ray_tally=rt)
+        # the entry test only for the pairs walked
+        rt["entries"] = rt["walks"]
+        costs.append(sum(WALK_OPS[k] * rt[k] for k in STEPS))
+        hits.append(r["hit"])
+        steps.append(torch.stack([rt[k] for k in STEPS]))
+    if not costs:
+        return 0, dict.fromkeys(STEPS, 0)
+    cost, hit, steps = torch.stack(costs), torch.stack(hits), torch.stack(steps)
+    walked = torch.ones_like(hit)
+    boxes = BOX_OPS * len(costs) * act.long()
+    if mode == "occluded":
+        # an occluded ray: only its cheapest volume to a hit
+        cheapest = torch.where(hit, cost, torch.iinfo(torch.int64).max).argmin(0)
+        occluded = hit.any(0)
+        walked = torch.where(occluded[None], torch.arange(len(costs), device=o.device)[:, None]
+                             == cheapest[None], walked)
+        boxes = torch.where(occluded, BOX_OPS, boxes)
+    ops = int(boxes.sum()) + int(torch.where(walked, cost, 0).sum())
+    per_step = (steps * walked[:, None]).sum((0, 2))
+    return ops, dict(zip(STEPS, per_step.tolist()))
+
+
+def traverse_bound(args, out, mode):
+    """The bound of one traverse() call: the bytes of its active rays
+    (origin, direction, t limit where given), the active flags, the enabled
+    flags where given, the occupancy plane it walks, its outputs and one
+    grid cell per nearest hit; the operations it needs at least
+    (``least_traversal_ops``) -> (bound, the least work's step counts)."""
+    o, t_limit, act, ven, occ = args[5], args[7], args[8], args[9], args[10]
+    na = int(act.sum())
+    by = act.numel() + na * (24 + (4 if t_limit is not None else 0)) + nbytes(occ[0])
+    by += nbytes(*out.values()) + (ven.numel() if ven is not None else 0)
+    if "t" in out:
+        by += 4 * int(out["hit"].sum())
+    ops, steps = least_traversal_ops(args, mode, out)
+    return bound(by, ops), steps
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -252,13 +457,12 @@ def plain_versions():
     the lookup module's own names (which its autograd Function calls)."""
     from voxtracer_torch.diff import volumetric
     from voxtracer_torch.kernels import lookup, traverse
-    from voxtracer_torch.kernels.dda_occ import traverse_occ
     from voxtracer_torch.render import integrator
 
-    swaps = [(integrator, "traverse", traverse_occ),
+    swaps = [(integrator, "traverse", traverse.traverse_plain),
              (integrator, "exit_march", traverse.exit_march_plain),
              (integrator, "lookup_rows", lookup.lookup_rows_plain),
-             (volumetric, "traverse", traverse_occ),
+             (volumetric, "traverse", traverse.traverse_plain),
              (lookup, "lookup_rows", lookup.lookup_rows_plain),
              (lookup, "lookup_rows_bwd", lookup.lookup_rows_bwd_plain)]
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
@@ -303,8 +507,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="an unpacked checkout of another commit: time its K4 and K4-bwd "
-                         "beside this one's, in turns, at the captured path shapes")
+                    help="an unpacked checkout of another commit: time its K1, K2, K4 and "
+                         "K4-bwd beside this one's, in turns, on the calls the path makes")
     baseline = ap.parse_args(argv).baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -321,7 +525,6 @@ def main(argv=None) -> int:
     from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, probes, traverse
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
-    from voxtracer_torch.kernels.dda_occ import traverse_occ
     from voxtracer_torch.render import integrator, reproject
     from voxtracer_torch.render.camera import primary_rays
     from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
@@ -339,9 +542,22 @@ def main(argv=None) -> int:
     lib_path = build.build()
     build.lib()
     log(f"[2] build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "properties for" in line:
-            log("    ptxas:", line.strip())
+    ptx = ptxas_functions(lib_path.with_suffix(".log").read_text())
+    for f in ptx:
+        log(f"    ptxas: {f['name']}: {f.get('registers')} registers, {f.get('stack')} bytes "
+            f"stack frame, {f.get('spill_stores')} bytes spill stores, {f.get('spill_loads')} "
+            f"bytes spill loads")
+    check(any(f["name"].startswith("traverse_kernel") for f in ptx),
+          "no traverse_kernel in ptxas' report")
+    # with --baseline: another checkout's K1/K2 and K4/K4-bwd, timed in
+    # turns with this one's (baseline, this, this, baseline)
+    base = lookup_of(baseline) if baseline else None
+    base_tr = traverse_of(baseline) if baseline else None
+    if base_tr is not None:
+        for f in ptxas_functions(base_tr.build.build().with_suffix(".log").read_text()):
+            log(f"    baseline ptxas: {f['name']}: {f.get('registers')} registers, "
+                f"{f.get('stack')} bytes stack frame, {f.get('spill_stores')} bytes spill "
+                f"stores, {f.get('spill_loads')} bytes spill loads")
 
     # ---- 3. each kernel against its plain version at the slice's shapes
     scene, cfg = monu_like_path(1920, 1080, bounces=4)
@@ -359,8 +575,6 @@ def main(argv=None) -> int:
                         px.reshape(-1) + u[:, 0], py.reshape(-1) + u[:, 1])
     o = o.contiguous()
     ones = torch.ones(n, dtype=torch.bool, device=dev)
-    ven = torch.ones(vols.n, dtype=torch.bool, device=dev)
-    big = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     results = []
 
     def report(kname, source, replaces, err, kern, plain, bnd, library, phase=3, **extra):
@@ -386,28 +600,45 @@ def main(argv=None) -> int:
     def counts():
         return dict(traverse.launches, **lookup.launches, **probes.launches)
 
-    def near(fn):
-        return fn(*vargs, o, d, big, ones, ven, vols.occ, vols.bricksize, mode="nearest")
+    def time_traversal(label, mode, args, plain_too=False):
+        """K1 or K2 on one call: held against the plain version; then per
+        launch the kernel, the baseline's in turns and, if plain_too, the
+        plain version -> (the call's entry, kernel, plain or None, bound)."""
+        k = traverse.traverse(*args, mode=mode)
+        p = traverse.traverse_plain(*args, mode=mode)
+        err = same_traversal(k, p, label)
+        bnd, least = traverse_bound(args, k, mode)
+        ex = explicit(args)
+        kern, turns = in_turns(lambda: traverse.traverse(*args, mode=mode),
+                               base_tr and (lambda: base_tr.traverse(*ex, mode=mode)))
+        plain = (per_launch(functools.partial(traverse.traverse_plain, *args, mode=mode),
+                            windows=3) if plain_too else None)
+        nr, na, nh = args[5].shape[0], int(args[8].sum()), int(k["hit"].sum())
+        log(f"    {label}: {nr} rays, {na} active, {nh} hits; kernel {kern[0]:.4f} ms "
+            f"({kern[1]:.1f} us host) = {bnd[0] / kern[0]:.0%} of bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}; bytes {bnd[2]:.4f} ms, operations {bnd[3]:.4f} ms)"
+            + (f", plain {plain[0]:.4f} ms" if plain else "") + turns_text(turns)
+            + f"; least walk steps {least} ({smi})")
+        entry = dict(call=label, rays=nr, active=na, hits=nh, ms=kern[0], host_us=kern[1],
+                     bound_ms=bnd[0], bound_by=bnd[1], share=bnd[0] / kern[0],
+                     plain_ms=plain and plain[0], max_abs_err=err)
+        if turns:  # the baseline's mean over its two turns
+            entry.update(baseline_ms=statistics.mean(ms for ms, _ in turns["baseline"]),
+                         baseline_host_us=statistics.mean(us for _, us in turns["baseline"]))
+        return entry, kern, plain, bnd
 
-    k = near(traverse.traverse)
-    tally1 = {}
-    p = near(functools.partial(traverse_occ, tally=tally1))
-    torch.cuda.synchronize()
-    for f in ("hit", "vol", "cell"):
-        check(torch.equal(k[f], p[f].to(k[f].dtype)), f"K1 {f} differs")
-    check(torch.allclose(k["t"], p["t"], rtol=1e-6, atol=1e-6), "K1 t")
-    nerr = max(max_err(k[c], p[c]) for c in ("nx", "ny", "nz"))
-    check(nerr <= 1e-5, f"K1 normals {nerr}")
-    hits = int(k["hit"].sum())
-    log(f"    K1: {hits} of {n} primary rays hit; plain walk steps {tally1}")
-    # the occupancy plane it walks, and one grid cell per hit
+    # K1 on the frame's primary rays, as find_nearest_world passes them (no
+    # t limit, every volume)
+    args1 = (*vargs, o, d, None, ones, None, vols.occ, vols.bricksize)
+    e1, kern1, plain1, bnd1 = time_traversal("K1 primary rays", "nearest", args1,
+                                             plain_too=True)
     report("traverse_nearest", "voxtracer_torch/csrc/traverse.cu",
-           "voxtracer/kernels/pallas_dda.py:1048", max(nerr, max_err(k["t"], p["t"])),
-           per_launch(lambda: near(traverse.traverse)), per_launch(lambda: near(traverse_occ)),
-           bound(nbytes(o, d, big, ones, ven, vols.occ[0], *k.values()) + 4 * hits,
-                 walk_ops(tally1)), None)
+           "voxtracer/kernels/pallas_dda.py:1048", e1["max_abs_err"], kern1, plain1, bnd1,
+           None, primary=e1)
 
-    # K2: the primary hits' shadow rays to the point light
+    # K2: the primary hits' shadow rays to the point light, as
+    # is_occluded_world passes them (every volume)
+    k = traverse.traverse(*args1, mode="nearest")
     hit = k["hit"]
     nrm = torch.stack([k["nx"], k["ny"], k["nz"]], -1)
     ph = o + k["t"][:, None] * d
@@ -415,20 +646,11 @@ def main(argv=None) -> int:
     to_l = scene.lights.point_pos[0] - so
     dst = torch.sqrt(mathx.dot3(to_l, to_l))
     sd = (to_l / dst[:, None]).contiguous()
-
-    def occl(fn):
-        return fn(*vargs, so, sd, dst, hit, ven, vols.occ, vols.bricksize, mode="occluded")
-
-    tally2 = {}
-    k2, p2 = occl(traverse.traverse), occl(functools.partial(traverse_occ, tally=tally2))
-    check(torch.equal(k2["hit"], p2["hit"]), "K2 hit differs")
-    log(f"    K2: {int(k2['hit'].sum())} of {int(hit.sum())} shadow rays occluded; "
-        f"plain walk steps {tally2}")
+    args2 = (*vargs, so, sd, dst, hit, None, vols.occ, vols.bricksize)
+    e2, kern2, plain2, bnd2 = time_traversal("K2 primary shadow rays", "occluded", args2,
+                                             plain_too=True)
     report("traverse_occluded", "voxtracer_torch/csrc/traverse.cu",
-           "voxtracer/kernels/pallas_dda.py:1048", 0.0,
-           per_launch(lambda: occl(traverse.traverse)), per_launch(lambda: occl(traverse_occ)),
-           bound(nbytes(so, sd, dst, hit, ven, vols.occ[0], k2["hit"]), walk_ops(tally2)),
-           None)
+           "voxtracer/kernels/pallas_dda.py:1048", 0.0, kern2, plain2, bnd2, None, primary=e2)
 
     # K3: rays started inside the glass and smoke cells of the media scene
     mscene, mcfg = media_path(256, 256)
@@ -522,6 +744,26 @@ def main(argv=None) -> int:
     log(f"[4] forward 1920x1080, 4 bounces, 1 spp: median {med:.1f} ms, "
         f"min {min(times):.1f} ms, spread {max(times) - min(times):.1f} ms "
         f"-> {n / med / 1e3:.3f} Mrays/s ({smi}); reps {times}")
+    if base_tr is not None:
+        # the same frame with the baseline's K1/K2 swapped in (given the
+        # explicit t limits and enabled flags its callers allocated), in
+        # turns: baseline, this, this, baseline; median of 3 frames each
+        def base_traverse(*args, mode="nearest"):
+            return base_tr.traverse(*explicit(args), mode=mode)
+
+        def frame_median(traverse_fn):
+            kept = integrator.traverse
+            integrator.traverse = traverse_fn
+            try:
+                return host_times(lambda: integrator.render_tiled(scene, cfg, fold_in(key, 5), 1,
+                                                                  1))[0]
+            finally:
+                integrator.traverse = kept
+
+        turns_f = [frame_median(f) for f in (base_traverse, traverse.traverse,
+                                             traverse.traverse, base_traverse)]
+        log(f"[4] forward 1920x1080 in turns baseline, this, this, baseline (K1/K2 swapped): "
+            + ", ".join(f"{ms:.1f} ms" for ms in turns_f) + f" ({smi})")
 
     # ---- 6. a whole image through the kernels vs through the plain versions
     sscene, scfg = monu_like_path(256, 128, bounces=4)
@@ -582,37 +824,34 @@ def main(argv=None) -> int:
     # lead/tail segment)
     wscene, wcfg = glass_sphere_box(512, 512)
     wscene = wscene.to(dev)
-    calls = {}
-    with captured_lookups(calls):
+    calls, tcalls, ends = {}, [], []
+    with captured_lookups(calls), captured_traversals(tcalls):
         integrator.render_tiled(scene, cfg, key, 1, 1)
+        ends.append(len(tcalls))
         integrator.render_tiled(wscene, wcfg, key, 1, 1)
+        ends.append(len(tcalls))
         train.binned_grads(params, scene, plan)
     torch.cuda.synchronize()
+    traced = {"path 1080p frame": tcalls[:ends[0]], "whitted 512^2 frame": tcalls[ends[0]:ends[1]],
+              "gradient": tcalls[ends[1]:]}
+    for pth, want in (("path 1080p frame", ("nearest", "occluded")),
+                      ("whitted 512^2 frame", ("nearest", "occluded")), ("gradient", ("nearest",))):
+        for mode in want:
+            check(any(m == mode for m, _ in traced[pth]), f"no {mode} traversal in the {pth}")
     fwd_keys = [("fwd", 256, 6), ("fwd", 256, 5), ("fwd", 256, 3), ("fwd", k_b, 1)]
     bwd_keys = [("bwd", 256, 3), ("bwd", k_b, 1)]
     for key_ in fwd_keys + bwd_keys:
         check(key_ in calls, f"no K4 call {key_} in the frame and the gradient")
-    # with --baseline: the same calls through another checkout's K4, timed
-    # in turns with this one's (baseline, this, this, baseline)
-    base = lookup_of(baseline) if baseline else None
-
     def measure(what, run, run_base, plain, library, lib_name, bnd, variants):
         """Per-launch times of one shape -> (kernel, plain, bound, library,
         the shape's JSON entry); logs them beside the bound, then the
         kernel's variants (name -> call) timed the same way."""
-        if base is None:
-            kern, turns = per_launch(run), None
-        else:
-            b0, kern, k1, b1 = (per_launch(f) for f in (run_base, run, run, run_base))
-            turns = dict(this=[kern, k1], baseline=[b0, b1])
+        kern, turns = in_turns(run, base and run_base)
         plain, lib = per_launch(plain), per_launch(library)
         txt = (f"    {what}: kernel {kern[0]:.4f} ms ({kern[1]:.1f} us host; "
                f"{bnd[0] / kern[0]:.0%} of bound {bnd[0]:.4f} ms, {bnd[1]}), plain "
                f"{plain[0]:.4f} ms, {lib_name} {lib[0]:.4f} ms ({lib[1]:.1f} us host)")
-        if turns:
-            seq = turns["baseline"][:1] + turns["this"] + turns["baseline"][1:]
-            txt += ("; in turns baseline, this, this, baseline: "
-                    + ", ".join(f"{ms:.4f} ms ({us:.1f} us host)" for ms, us in seq))
+        txt += turns_text(turns)
         var = {name: per_launch(f) for name, f in variants.items()}
         if var:
             txt += "; variants " + ", ".join(f"{name} {ms:.4f} ms ({us:.1f} us host)"
@@ -674,6 +913,22 @@ def main(argv=None) -> int:
                                  ("lookup_rows_bwd", "voxtracer/diff/volumetric.py:95", err7)):
         report(kname, "voxtracer_torch/csrc/lookup.cu", replaces, err, *first[kname], phase=7,
                shapes=shapes[kname])
+
+    # K1 and K2 on every call the path frame, the whitted frame and the
+    # gradient made, each held against the plain version; the plain version
+    # timed on the first call of each kind per path
+    log("[7] K1 and K2 on the calls of one 1080p path frame, one whitted 512x512 frame and "
+        "one binned gradient:")
+    for pth, cl in traced.items():
+        seen = {}
+        for mode, args in cl:
+            i = seen[mode] = seen.get(mode, -1) + 1
+            entry = time_traversal(f"{pth}, {('K1', 'K2')[mode == 'occluded']} call {i}", mode,
+                                   args, plain_too=i == 0)[0]
+            entry["path"] = pth
+            next(r for r in results if r["name"] == f"traverse_{mode}") \
+                .setdefault("calls", []).append(entry)
+    del tcalls, traced
 
     # ---- 8. the gradient half of the main path, counted, then the fused
     # step (forward frame + gradient) timed
@@ -919,6 +1174,11 @@ def main(argv=None) -> int:
         log(f"[launches] {pth}: {c}")
     for r in results:
         r["launches"] = sum(c[r["name"]] for c in paths.values())
+    # K1 and K2 keep everything in registers
+    for f in ptx:
+        if f["name"].startswith("traverse_kernel"):
+            check(f.get("stack") == 0, f"ptxas: {f['name']} has a {f.get('stack')}-byte stack "
+                  f"frame")
     log(json.dumps({"kernels": results}))
     log(f"gpu: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

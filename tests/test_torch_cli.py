@@ -1,0 +1,84 @@
+"""The port's ``cli render`` frame loop and progressive accumulator against
+the JAX CLI's, on the CPU.
+
+``voxtracer/cli.py`` renders frame i as ``render(scene, cfg,
+fold_in(key, i), spp)`` (scanline order) and keeps a ``ProgressiveState``
+running mean; ``voxtracer_torch.cli.render_progressive`` must draw the same
+samples.  The scene is glass_sphere_box in path mode at 16^2, seed 0, 2
+frames of 1 spp, carried from the JAX package with ``scene_from_numpy``.
+Glass amplifies the multiply-adds XLA's jit contracts, so the JAX loop
+runs under ``jax.disable_jit()``.
+
+Tolerances: the path tolerances of tests/test_torch_render.py (mean
+absolute difference <= 1e-4, at most 1% of pixels off by more than 1e-3);
+``accumulate`` within 1 ulp-scale (rtol 1e-6, atol 1e-7) of JAX's.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from voxtracer.render import accumulate as jax_accumulate
+from voxtracer.render import integrator as jax_integrator
+from voxtracer.scene import presets as jax_presets
+from voxtracer_torch import cli
+from voxtracer_torch.core.rng import make_key
+from voxtracer_torch.render import accumulate
+from voxtracer_torch.scene import presets
+from voxtracer_torch.scene.convert import scene_from_numpy
+
+from test_torch_render import _flatten
+
+torch.set_num_threads(1)
+
+
+def test_cli_render_path_matches_the_jax_cli_loop():
+    w = h = 16
+    jscene, jcfg = jax_presets.glass_sphere_box(w, h)
+    jcfg = dataclasses.replace(jcfg, mode="path")
+    _, tcfg = presets.glass_sphere_box(w, h)
+    tcfg = dataclasses.replace(tcfg, mode="path")
+    assert tcfg.max_bounces == jcfg.max_bounces
+    tscene = scene_from_numpy(_flatten(jscene), device="cpu")
+    jscene = jax.tree.map(jnp.asarray, jscene)
+    key = jax.random.PRNGKey(0)
+    prog = jax_accumulate.ProgressiveState(h, w)
+    with jax.disable_jit():
+        for frame in range(2):
+            want = prog.add(jax_integrator.render(jscene, jcfg, jax.random.fold_in(key, frame), 1))
+    want = np.asarray(want)
+    got = cli.render_progressive(tscene, tcfg, make_key(0), 2, 1).numpy()
+    assert got.shape == (h, w, 3) and np.isfinite(got).all()
+    diff = np.abs(got - want)
+    assert diff.mean() <= 1e-4, diff.mean()
+    assert (diff.max(-1) > 1e-3).mean() <= 0.01
+    assert 0.02 < got.mean() < 10.0
+
+
+@pytest.mark.parametrize("frames", [0, 1, 7])
+def test_accumulate_matches_jax(frames):
+    rng = np.random.default_rng(frames)
+    acc, new = (rng.uniform(0.0, 3.0, (8, 6, 3)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jax_accumulate.accumulate(jnp.asarray(acc), jnp.asarray(new),
+                                                jnp.int32(frames)))
+    got = accumulate.accumulate(torch.from_numpy(acc), torch.from_numpy(new), frames)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def test_progressive_state_is_the_running_mean():
+    rng = np.random.default_rng(3)
+    frames = [rng.uniform(0.0, 2.0, (4, 5, 3)).astype(np.float32) for _ in range(4)]
+    prog = accumulate.ProgressiveState(4, 5)
+    jprog = jax_accumulate.ProgressiveState(4, 5)
+    for f in frames:
+        got = prog.add(torch.from_numpy(f))
+        want = jprog.add(jnp.asarray(f))
+    assert prog.frames == jprog.frames == 4
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), np.mean(frames, axis=0), rtol=1e-5, atol=1e-6)
+    prog.reset()
+    assert prog.frames == 0 and not bool(prog.acc.any())

@@ -101,6 +101,121 @@ def test_traverse_kernel_matches_plain(cuda, mode):
         _same(k, p, ("hit", "vol", "cell"))
 
 
+def _edge_scene(rng, nvol, dev, disabled):
+    """nvol volumes of 16^3 boxes; the last one a copy of the first (every
+    hit on it ties in t with one on volume 0: the earliest volume must
+    win); with `disabled`, every third volume between them switched off."""
+    specs = []
+    for _ in range(nvol):
+        g = np.full((16,) * 3, MAT_NONE, np.uint8)
+        for _ in range(3):
+            lo = rng.integers(0, 12, 3)
+            g[lo[0]:lo[0] + rng.integers(2, 8), lo[1]:lo[1] + rng.integers(2, 8),
+              lo[2]:lo[2] + rng.integers(2, 8)] = int(rng.choice([1, 2, 7, GLASS]))
+        specs.append(VolumeSpec(position=tuple(rng.uniform(-1.5, 1.5, 3)), gridsize=16, grid=g,
+                                rotation=tuple(rng.uniform(-0.5, 0.5, 3)),
+                                scale=tuple(rng.uniform(0.4, 1.2, 3))))
+    if nvol > 1:
+        specs[-1] = specs[0]
+    v = build_volumes(specs).to(dev)
+    ven = torch.ones(nvol, dtype=torch.bool)
+    if disabled:
+        ven[1:-1:3] = False
+    return (v.grids.reshape(-1), v.gridsize, v.inv, v.fwd, v.cube_min), v.occ, v.bricksize, \
+        ven.to(dev)
+
+
+def _edge_rays(rng, n, dev):
+    """Random rays, then rays along the axes and in the axis planes (zero
+    and -0.0 direction components), rays with NaN directions or origins
+    and rays that start inside the volumes."""
+    o, d = _rays(rng, n, torch.device("cpu"))
+    axes = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1],
+                         [0.6, 0.8, 0], [0, -0.6, 0.8], [0.8, -0.0, -0.6], [-0.0, 1, -0.0]])
+    k = 256
+    d[:k * len(axes)] = axes.repeat_interleave(k, 0)
+    d[-64:-32, 0] = float("nan")
+    o[-32:, 1] = float("nan")
+    o[-1024:-512] *= 0.2  # near the middle of the scene, often inside a volume
+    return o.to(dev), d.to(dev)
+
+
+@pytest.mark.parametrize("disabled", [False, True])
+@pytest.mark.parametrize("nvol", [1, 4, 8, 9, traverse.MAX_V])
+def test_traverse_kernel_volume_counts_and_edge_rays(cuda, nvol, disabled):
+    """K1 and K2 against the plain version at 1 to 64 volumes (index order
+    at every count; 8 and 9 straddle the count up to which the first port's
+    K1 kept its entry list in registers): with disabled volumes, inactive
+    rays, exact t ties between two volumes, zero-component and NaN
+    directions, and t limits of inf (K2)."""
+    rng = np.random.default_rng(nvol + 100 * disabled)
+    vargs, occ, bsz, ven = _edge_scene(rng, nvol, cuda, disabled)
+    n = 16384
+    o, d = _edge_rays(rng, n, cuda)
+    act = torch.from_numpy(rng.uniform(size=n) < 0.9).to(cuda)
+    tl = torch.from_numpy(np.where(rng.uniform(size=n) < 0.1, np.inf,
+                                   rng.uniform(0.2, 4.0, n)).astype(np.float32)).to(cuda)
+    for mode, limit in (("nearest", None), ("occluded", tl)):
+        p = traverse.traverse_plain(*vargs, o, d, limit, act, ven, occ, bsz, mode=mode)
+        k = traverse.traverse(*vargs, o, d, limit, act, ven, occ, bsz, mode=mode)
+        torch.cuda.synchronize()
+        if mode == "occluded":
+            assert torch.equal(k["hit"], p["hit"])
+        else:
+            _same(k, p, ("hit", "vol", "cell"))
+        assert 0 < int(k["hit"].sum()) < n
+    if nvol > 1 and not disabled:  # the copy of volume 0 never wins its ties
+        k = traverse.traverse(*vargs, o, d, None, act, ven, occ, bsz)
+        assert bool((k["vol"] == 0).any()) and not bool((k["vol"] == nvol - 1).any())
+
+
+def test_traverse_refuses_65_volumes_and_takes_none_defaults(cuda):
+    """65 volumes are refused; t_limit None (BIG) and vol_enabled None
+    (every volume) give what the explicit tensors give, in both modes."""
+    rng = np.random.default_rng(65)
+    g = np.full((1, 1, 1), 7, np.uint8)
+    big = build_volumes([VolumeSpec(position=(float(i), 0.0, 0.0), gridsize=1, grid=g)
+                         for i in range(traverse.MAX_V + 1)]).to(cuda)
+    o, d = _rays(rng, 128, cuda)
+    act = torch.ones(128, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        traverse.traverse(big.grids.reshape(-1), big.gridsize, big.inv, big.fwd, big.cube_min,
+                          o, d, None, act, None, big.occ, big.bricksize)
+    vargs, occ, bsz = _scene(rng, 4, cuda)
+    o, d = _rays(rng, 65536, cuda)
+    act = torch.from_numpy(rng.uniform(size=65536) < 0.9).to(cuda)
+    tl = torch.from_numpy(rng.uniform(0.5, 4.0, 65536).astype(np.float32)).to(cuda)
+    ones = torch.ones(4, dtype=torch.bool, device=cuda)
+    for mode, limit in (("nearest", None), ("occluded", tl)):
+        got = traverse.traverse(*vargs, o, d, limit, act, None, occ, bsz, mode=mode)
+        want = traverse.traverse(*vargs, o, d, torch.full((65536,), BIG, device=cuda)
+                                 if limit is None else limit, act, ones, occ, bsz, mode=mode)
+        torch.cuda.synchronize()
+        for f in got:
+            assert torch.equal(got[f], want[f]), (mode, f)
+
+
+def test_traverse_kernels_on_the_captured_path_calls(cuda):
+    """K1 and K2 on every call one 1080p path frame makes (primary rays,
+    bounces 1-4, the NEE shadow rays), captured as the path passes them."""
+    from chip_smoke import captured_traversals
+
+    scene, cfg = monu_like_path(1920, 1080, bounces=4)
+    scene = scene.to(cuda)
+    calls = []
+    with captured_traversals(calls):
+        integrator.render_tiled(scene, cfg, make_key(0), 1, 1)
+    assert [m for m, _ in calls].count("occluded") == [m for m, _ in calls].count("nearest") == 5
+    for mode, args in calls:
+        k = traverse.traverse(*args, mode=mode)
+        p = traverse.traverse_plain(*args, mode=mode)
+        torch.cuda.synchronize()
+        if mode == "occluded":
+            assert torch.equal(k["hit"], p["hit"])
+        else:
+            _same(k, p, ("hit", "vol", "cell"))
+
+
 def test_exit_kernel_matches_plain(cuda):
     rng = np.random.default_rng(8)
     vargs, occ, bsz = _scene(rng, 3, cuda)

@@ -7,8 +7,10 @@
 
 The scene lives on ``--device`` (default ``cuda``); CUDA tensors run the
 hand-written kernels, so the default needs a GPU.  Path, primary and
-whitted frames are averaged; reproject frames carry the illumination
-history from frame to frame and the last resolved frame is written.
+whitted frames are rendered as the JAX CLI renders them (``render`` of
+``fold_in(key, frame)``, scanline order) and kept as a progressive running
+mean; reproject frames carry the illumination history from frame to frame
+and the last resolved frame is written.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from voxtracer_torch.core.rng import fold_in, make_key
 from voxtracer_torch.io.image import write_png
-from voxtracer_torch.render.integrator import render_tiled
+from voxtracer_torch.render.accumulate import ProgressiveState
+from voxtracer_torch.render.integrator import render
 from voxtracer_torch.render.reproject import render_reproject_frame
 from voxtracer_torch.render.tonemap import to_rgb8
 from voxtracer_torch.scene.presets import PRESETS
@@ -34,6 +37,16 @@ def _timed(device, frame, fn):
         torch.cuda.synchronize(device)
     print(f"frame {frame}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
     return out
+
+
+def render_progressive(scene, cfg, key, frames: int, spp: int = 1):
+    """The JAX CLI's frame loop (voxtracer/cli.py:92-98): frame i renders
+    ``render(scene, cfg, fold_in(key, i), spp)`` into a ProgressiveState
+    running mean -> the accumulated radiance [H, W, 3]."""
+    prog = ProgressiveState(cfg.height, cfg.width, scene.device)
+    for frame in range(frames):
+        _timed(scene.device, frame, lambda: prog.add(render(scene, cfg, fold_in(key, frame), spp)))
+    return prog.acc
 
 
 def cmd_render(args) -> None:
@@ -58,11 +71,7 @@ def cmd_render(args) -> None:
         rgb = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
         what = f"{args.frames} reprojected frames"
     else:
-        acc = torch.zeros((cfg.height, cfg.width, 3), device=device)
-        for frame in range(args.frames):
-            acc += _timed(device, frame, lambda: render_tiled(
-                scene, cfg, fold_in(key, frame), args.spp, args.tiles))
-        rgb = to_rgb8(acc / args.frames)
+        rgb = to_rgb8(render_progressive(scene, cfg, key, args.frames, args.spp))
         what = f"{args.frames} frames x {args.spp} spp"
     write_png(args.output, rgb.cpu().numpy())
     print(f"wrote {args.output} ({cfg.width}x{cfg.height}, {what}, mode={cfg.mode}, "
@@ -81,7 +90,6 @@ def main(argv=None) -> None:
     r.add_argument("--bounces", type=int)
     r.add_argument("--spp", type=int, default=1)
     r.add_argument("--frames", type=int, default=1)
-    r.add_argument("--tiles", type=int, default=1, help="row bands per frame")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", default="cuda")
     r.add_argument("--output", default="out.png")

@@ -8,19 +8,31 @@
 // (traverse_occ); this file reproduces its two-level walk step for step.
 //
 // What bounds it on the card: the walk is a data-dependent loop per ray,
-// so it is bound by latency and warp divergence, not by bytes or FLOPs.
-// Its tables are small (a 64^3 grid scene holds 4 x 512 occupancy rows of
-// 64 bytes per plane, and the per-volume transforms) and stay in L1/L2.
+// so it is bound by issue and latency under warp divergence, not by bytes
+// or FLOPs.  On the path's primary rays most of a ray's instructions go to
+// the entry tests (object-space ray, three IEEE reciprocals and the slab
+// test for every volume), then to the walk's set-up.
 //
 // What the design does about it: one thread per ray, with the whole walk
-// in registers.  Each ray visits only the volumes its ray enters, in
-// entry-t order, and stops as soon as its best hit lies before the next
-// entry; a macro DDA over 8^3 bricks skips empty space with one 64-byte
-// row read per brick, and the fine steps inside an occupied brick test
-// bits of that row.  Rays are generated in 8x128-pixel tiles upstream, so
-// a warp walks neighbouring pixels.  Sorting rays, warp-coherent walks and
-// fusing the material lookup into the epilogue are later work.
-//
+// in registers, over tables packed once per scene by kernels/traverse.py
+// (scene_tables, world_boxes) and read through the read-only cache:
+//   * a [V, 26] constants table in the TPU kernel's vtab order (the
+//     inverse transform's rows 0-2, the forward transform's 3x3, cube_min,
+//     the grid and brick sizes);
+//   * a brick-occupied bitmask per occupancy plane (bit vol * M^3 + brick
+//     set iff any of the brick's 512 cell bits is set), so an empty-brick
+//     skip tests one bit; a brick's 64-byte cell row is read only on
+//     descent, one word per fine step;
+//   * each volume's world-space box, widened by a margin: a ray that
+//     surely misses the box skips the volume's object-space entry test
+//     (the exact test would miss too, so no result changes).
+// K1 and K2 visit the volumes in index order and walk each one as soon as
+// its entry test passes, with no candidate list: a volume entered after
+// the best hit so far (or t_limit) is skipped, and each walk stops just
+// above the best hit so far, so the nearest hit and the earliest-volume
+// tie-break come out as in (entry t, volume) order; K2 stops at its first
+// hit.  Everything a thread keeps stays in registers (no stack frame).
+
 // Precision: build with --fmad=false and without --use_fast_math, so no
 // multiply-add is contracted and division and square root are IEEE.  Each
 // expression below is written in the same order as the plain version;
@@ -36,17 +48,26 @@ constexpr float BIG = 1e34f;
 constexpr int BRICK = 8;
 constexpr int INNER = 8;
 constexpr int MAX_V = 64;
+constexpr int THREADS = 128;
 constexpr int MAT_NONE = 255;
 constexpr int MODE_NEAREST = 0;
 constexpr int MODE_OCCLUDED = 1;
 constexpr int MODE_EXIT = 2;
+// the packed constants table: 26 floats a volume
+constexpr int VT = 26, VT_FWD = 12, VT_MIN = 21, VT_GS = 24, VT_MS = 25;
 
-// NaN-propagating min/max, as torch.minimum/maximum and jnp.minimum/maximum.
+// NaN-propagating min/max, as torch.minimum/maximum and jnp.minimum/maximum:
+// PTX's max.NaN / min.NaN (sm_80 on) give the canonical NaN 0x7fffffff when
+// either input is NaN, else what fmaxf / fminf give.
 __device__ __forceinline__ float nmax(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nmin(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // clip(int32(pos), 0, gs - 1); the cast saturates and maps NaN to 0.
@@ -59,21 +80,21 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, rdx, rdy, rdz, sx, sy, sz;
 };
 
-struct Scene {
-  const int* grids;      // [V * G^3]
-  const int* gridsize;   // [V]
-  const float* inv;      // [V, 4, 4]
-  const float* fwd;      // [V, 4, 4]
-  const float* cube_min; // [V, 3]
-  const int* bricksize;  // [V]
-  const int* occ;        // [3, V, M^3, 16]
-  int v, side, mside;
+// The scene as the kernels read it: the packed tables and the raw rows.
+struct Tables {
+  const float* vtab;     // [V, 26]
+  const unsigned* bm;    // [3, words] brick-occupied bits per plane
+  const int* occ;        // [3, V, M^3, 16] occupancy rows
+  const int* grids;      // [V * G^3] material of each cell
+  const float* wbox;     // [V, 8] world box lo xyz, hi xyz, coordinate magnitude, 0
+                         // (K1 and K2's cull)
+  int v, side, mside, words;
 };
 
-__device__ __forceinline__ Ray object_ray(const Scene& sc, int vol, float wox,
-                                          float woy, float woz, float wdx,
-                                          float wdy, float wdz) {
-  const float* m = sc.inv + 16 * vol;
+// m: a volume's row of the constants table (the inverse's rows 0-2 first).
+__device__ __forceinline__ Ray object_ray(const float* m, float wox, float woy,
+                                          float woz, float wdx, float wdy,
+                                          float wdz) {
   Ray r;
   r.ox = m[0] * wox + m[1] * woy + m[2] * woz + m[3];
   r.oy = m[4] * wox + m[5] * woy + m[6] * woz + m[7];
@@ -118,6 +139,10 @@ __device__ __forceinline__ float entry_t(const Ray& r, float bx, float by,
   return (miss || (t0 <= 0.0f)) ? BIG : t0;
 }
 
+__device__ __forceinline__ float vol_entry(const Ray& r, const float* m) {
+  return entry_t(r, m[VT_MIN], m[VT_MIN + 1], m[VT_MIN + 2]);
+}
+
 struct Axis {
   int p, step;
   float tdelta, tmax;
@@ -153,20 +178,26 @@ struct WalkResult {
   float t_out;  // exit: the t the ray leaves the medium or the grid
 };
 
-// One ray through one volume: dda_occ._core for a single pair.  `rows` is
-// the volume's first occupancy row in the chosen plane.
+// One ray through one volume: dda_occ._core for a single pair.  t0 is the
+// ray's entry t into the volume (entry_t), m the volume's constants row,
+// bm the plane's brick bitmask with the volume's bricks from bit bit0 on,
+// rows the volume's first occupancy row in the plane; each fine step
+// reads its word of the row with __ldg.
 template <int MODE>
-__device__ WalkResult walk(const Ray& r, float bx, float by, float bz,
-                           int gs_i, int ms_i, int side, int mside,
-                           const int* __restrict__ rows, float tl,
-                           bool ray_active) {
+__device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
+                                           const float* m, int side, int mside,
+                                           const unsigned* bm, int bit0,
+                                           const int* __restrict__ rows,
+                                           float tl, bool ray_active) {
   const bool is_exit = MODE == MODE_EXIT;
-  const float gs_f = (float)gs_i;
-  const float ms_f = (float)ms_i;
+  const float bx = m[VT_MIN], by = m[VT_MIN + 1], bz = m[VT_MIN + 2];
+  const float gs_f = m[VT_GS];
+  const float ms_f = m[VT_MS];
+  const int gs_i = (int)gs_f;
+  const int ms_i = (int)ms_f;
   const float cellw = 1.0f / gs_f;
   const float mcell = 1.0f / ms_f;
 
-  const float t0 = entry_t(r, bx, by, bz);
   const bool valid = t0 < 1e33f;
   // fine-level steps and deltas; the macro level shares the step signs
   Axis fx = setup_axis(r.ox, r.dx, r.rdx, r.sx, bx, t0, gs_f, gs_i, cellw);
@@ -191,19 +222,13 @@ __device__ WalkResult walk(const Ray& r, float bx, float by, float bz,
   float mtmx = mx.tmax, mtmy = my.tmax, mtmz = mz.tmax;
 
   for (int outer = 0; active && outer < 1024; ++outer) {
-    // one row per iteration: the current brick's 512 occupancy bits
+    // the current brick: one bit of the bitmask says whether it is empty
     const int midx = (mpx * mside + mpy) * mside + mpz;
     const int* row = rows + 16 * midx;
     bool descend = false, skip = false;
     if (!level) {
-      const int4* r4 = reinterpret_cast<const int4*>(row);
-      int any = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        int4 w = __ldg(r4 + k);
-        any |= w.x | w.y | w.z | w.w;
-      }
-      descend = any != 0;
+      const int bit = bit0 + midx;
+      descend = ((bm[bit >> 5] >> (bit & 31)) & 1u) != 0;
       skip = !descend;
     }
     const int blox = mpx * BRICK, bloy = mpy * BRICK, bloz = mpz * BRICK;
@@ -286,7 +311,7 @@ __device__ WalkResult walk(const Ray& r, float bx, float by, float bz,
 }
 
 // GetNormalVoxel (scene.cpp:121-148): object-space face normal at t,
-// taken to world space by fwd's linear part.
+// taken to world space by fwd's linear part (constants row m).
 __device__ __forceinline__ float frac_dist(float o, float dc, float t,
                                            float gs_f) {
   float i1 = (o + t * dc) * gs_f;
@@ -294,9 +319,9 @@ __device__ __forceinline__ float frac_dist(float o, float dc, float t,
   return nmin(fg, 1.0f - fg);
 }
 
-__device__ void normal_at(const Scene& sc, int vol, const Ray& r, float t,
-                          float& nx, float& ny, float& nz) {
-  const float gs_f = (float)sc.gridsize[vol];
+__device__ __forceinline__ void normal_at(const float* m, const Ray& r, float t,
+                                          float& nx, float& ny, float& nz) {
+  const float gs_f = m[VT_GS];
   float ddx = frac_dist(r.ox, r.dx, t, gs_f);
   float ddy = frac_dist(r.oy, r.dy, t, gs_f);
   float ddz = frac_dist(r.oz, r.dz, t, gs_f);
@@ -304,79 +329,82 @@ __device__ void normal_at(const Scene& sc, int vol, const Ray& r, float t,
   float ox = ddx == mind ? r.sx * 2.0f - 1.0f : 0.0f;
   float oy = ddy == mind ? r.sy * 2.0f - 1.0f : 0.0f;
   float oz = ddz == mind ? r.sz * 2.0f - 1.0f : 0.0f;
-  const float* m = sc.fwd + 16 * vol;
-  float wx = m[0] * ox + m[1] * oy + m[2] * oz;
-  float wy = m[4] * ox + m[5] * oy + m[6] * oz;
-  float wz = m[8] * ox + m[9] * oy + m[10] * oz;
+  const float* f = m + VT_FWD;
+  float wx = f[0] * ox + f[1] * oy + f[2] * oz;
+  float wy = f[3] * ox + f[4] * oy + f[5] * oz;
+  float wz = f[6] * ox + f[7] * oy + f[8] * oz;
   float inv_len = 1.0f / sqrtf(nmax(wx * wx + wy * wy + wz * wz, 1e-20f));
   nx = wx * inv_len;
   ny = wy * inv_len;
   nz = wz * inv_len;
 }
 
-// K1 (nearest) and K2 (occluded): one thread per ray over all volumes.
+// 1/x to within 1 ulp (MUFU.RCP, denormals flushed): for the cull, whose
+// margin is far above that error; inf for 0 and NaN for NaN, as 1/x.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// False only when the ray surely misses volume v's world box, widened by
+// a margin far above the object-space test's rounding: the exact entry
+// test would give BIG as well.  Any NaN keeps the volume.
+__device__ __forceinline__ bool may_enter(const float* wb, float ox, float oy, float oz,
+                                          float rx, float ry, float rz, float omag) {
+  const float m = 1e-4f * (1.0f + wb[6] + omag);
+  const float ax = (wb[0] - m - ox) * rx, bx = (wb[3] + m - ox) * rx;
+  const float ay = (wb[1] - m - oy) * ry, by = (wb[4] + m - oy) * ry;
+  const float az = (wb[2] - m - oz) * rz, bz = (wb[5] + m - oz) * rz;
+  const float lo = nmax(nmax(nmin(ax, bx), nmin(ay, by)), nmin(az, bz));
+  const float hi = nmin(nmin(nmax(ax, bx), nmax(ay, by)), nmax(az, bz));
+  return !(lo > hi || hi < 0.0f);
+}
+
+// K1 (nearest) and K2 (occluded): one thread per ray over all volumes, in
+// index order.  A volume is walked as soon as its entry test passes; one
+// entered after the best hit so far (or t_limit) cannot win and is
+// skipped, and K2 stops at its first hit.
+// out: nearest: t, vol, cell, nx, ny, nz ([n] each, f32 or i32), then the
+// hit bytes; occluded: the hit bytes alone.  t_limit null means BIG,
+// vol_enabled null every volume.
 template <int MODE>
-__global__ void __launch_bounds__(128)
-traverse_kernel(Scene sc, const float* __restrict__ o,
+__global__ void __launch_bounds__(THREADS)
+traverse_kernel(Tables tb, const float* __restrict__ o,
                 const float* __restrict__ d, const float* __restrict__ t_limit,
                 const uint8_t* __restrict__ active,
                 const uint8_t* __restrict__ vol_enabled, int n,
-                uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
-                int* __restrict__ vol_out, int* __restrict__ cell_out,
-                float* __restrict__ nx_out, float* __restrict__ ny_out,
-                float* __restrict__ nz_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                void* __restrict__ out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const float wox = o[3 * i], woy = o[3 * i + 1], woz = o[3 * i + 2];
   const float wdx = d[3 * i], wdy = d[3 * i + 1], wdz = d[3 * i + 2];
-  const float tl = t_limit[i];
-  const int m3 = sc.mside * sc.mside * sc.mside;
-  const int g3 = sc.side * sc.side * sc.side;
+  const float wrx = rcp_approx(wdx), wry = rcp_approx(wdy), wrz = rcp_approx(wdz);
+  const float omag = fmaxf(fabsf(wox), fmaxf(fabsf(woy), fabsf(woz)));
+  const float tl = t_limit == nullptr ? BIG : t_limit[i];
+  const int m3 = tb.mside * tb.mside * tb.mside;
+  const int g3 = tb.side * tb.side * tb.side;
 
   bool best_hit = false;
   float best_t = BIG;
   int best_vol = -2, best_gidx = 0;
-
   if (active[i]) {
-    // candidates in (entry t, volume id) order: a stable insertion sort
-    float ts[MAX_V];
-    int ids[MAX_V];
-    int nc = 0;
-    for (int v = 0; v < sc.v; ++v) {
-      if (!vol_enabled[v]) continue;
-      Ray r = object_ray(sc, v, wox, woy, woz, wdx, wdy, wdz);
-      float t0 = entry_t(r, sc.cube_min[3 * v], sc.cube_min[3 * v + 1],
-                         sc.cube_min[3 * v + 2]);
-      if (!(t0 < 1e33f)) continue;  // missed (or NaN): never walked
-      int j = nc++;
-      while (j > 0 && ts[j - 1] > t0) {
-        ts[j] = ts[j - 1];
-        ids[j] = ids[j - 1];
-        --j;
-      }
-      ts[j] = t0;
-      ids[j] = v;
-    }
-    for (int k = 0; k < nc; ++k) {
-      // a candidate entering after the best hit (or t_limit) cannot win;
-      // neither can any later one
-      if (!(ts[k] <= nmin(tl, best_t))) break;
+    for (int v = 0; v < tb.v && !(MODE == MODE_OCCLUDED && best_hit); ++v) {
+      if ((vol_enabled != nullptr && vol_enabled[v] == 0) ||
+          !may_enter(tb.wbox + 8 * v, wox, woy, woz, wrx, wry, wrz, omag))
+        continue;
+      const float* m = tb.vtab + v * VT;
+      const Ray r = object_ray(m, wox, woy, woz, wdx, wdy, wdz);
+      const float t0 = vol_entry(r, m);
+      if (!(t0 < 1e33f) || !(t0 <= nmin(tl, best_t))) continue;
       // the walk limit sits strictly above best_t so an exact-t tie in a
       // later volume is still recorded and loses the earliest-volume
-      // tie-break below
-      const float bound = nmin(tl, __int_as_float(__float_as_int(best_t) + 1));
-      const int v = ids[k];
-      Ray r = object_ray(sc, v, wox, woy, woz, wdx, wdy, wdz);
-      WalkResult w = walk<MODE>(
-          r, sc.cube_min[3 * v], sc.cube_min[3 * v + 1], sc.cube_min[3 * v + 2],
-          sc.gridsize[v], sc.bricksize[v], sc.side, sc.mside,
-          sc.occ + (size_t)v * m3 * 16, bound, true);
-      if (!w.hit) continue;
-      if (MODE == MODE_OCCLUDED) {
-        best_hit = true;
-        break;
-      }
-      if (!best_hit || w.t_hit < best_t || (w.t_hit == best_t && v < best_vol)) {
+      // tie-break; K2's best_t stays BIG, so its limit is t_limit
+      const float limit = nmin(tl, __int_as_float(__float_as_int(best_t) + 1));
+      WalkResult w = walk<MODE>(r, t0, m, tb.side, tb.mside, tb.bm, v * m3,
+                                tb.occ + (size_t)v * m3 * 16, limit, true);
+      if (w.hit && (MODE == MODE_OCCLUDED || !best_hit || w.t_hit < best_t ||
+                    (w.t_hit == best_t && v < best_vol))) {
         best_hit = true;
         best_t = w.t_hit;
         best_vol = v;
@@ -384,104 +412,97 @@ traverse_kernel(Scene sc, const float* __restrict__ o,
       }
     }
   }
-  hit_out[i] = best_hit ? 1 : 0;
-  if (MODE == MODE_OCCLUDED) return;
+  if (MODE == MODE_OCCLUDED) {
+    static_cast<uint8_t*>(out)[i] = best_hit ? 1 : 0;
+    return;
+  }
   float nx = 0.0f, ny = 0.0f, nz = 0.0f;
   if (best_hit) {
-    Ray r = object_ray(sc, best_vol, wox, woy, woz, wdx, wdy, wdz);
-    normal_at(sc, best_vol, r, best_t, nx, ny, nz);
+    const float* m = tb.vtab + best_vol * VT;
+    normal_at(m, object_ray(m, wox, woy, woz, wdx, wdy, wdz), best_t, nx, ny, nz);
   }
-  t_out[i] = best_hit ? best_t : BIG;
-  vol_out[i] = best_hit ? best_vol : -2;
-  cell_out[i] = best_hit ? sc.grids[best_gidx] : MAT_NONE;
-  nx_out[i] = nx;
-  ny_out[i] = ny;
-  nz_out[i] = nz;
+  float* of = static_cast<float*>(out);
+  int* oi = static_cast<int*>(out);
+  of[i] = best_hit ? best_t : BIG;
+  oi[(size_t)n + i] = best_hit ? best_vol : -2;
+  oi[2 * (size_t)n + i] = best_hit ? tb.grids[best_gidx] : MAT_NONE;
+  of[3 * (size_t)n + i] = nx;
+  of[4 * (size_t)n + i] = ny;
+  of[5 * (size_t)n + i] = nz;
+  reinterpret_cast<uint8_t*>(of + 6 * (size_t)n)[i] = best_hit ? 1 : 0;
 }
 
 // K3: march each ray through its own volume until it leaves the medium
-// (glass plane 1 or smoke plane 2) or the grid.
-__global__ void __launch_bounds__(128)
-exit_kernel(Scene sc, const float* __restrict__ o, const float* __restrict__ d,
+// (glass plane 1 or smoke plane 2) or the grid; tables from global memory.
+// out: t, cell, nx, ny, nz ([n] each), then the in-volume bytes.
+__global__ void __launch_bounds__(THREADS)
+exit_kernel(Tables tb, const float* __restrict__ o, const float* __restrict__ d,
             const uint8_t* __restrict__ active,
             const int* __restrict__ mode_code,
-            const int* __restrict__ vol_match, int n,
-            uint8_t* __restrict__ in_out, float* __restrict__ t_out,
-            int* __restrict__ cell_out, float* __restrict__ nx_out,
-            float* __restrict__ ny_out, float* __restrict__ nz_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+            const int* __restrict__ vol_match, int n, void* __restrict__ out) {
+  const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const int v = vol_match[i];
   bool in_vol = false;
   float t = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   int cell = MAT_NONE;
-  if (v >= 0 && v < sc.v) {
-    const int m3 = sc.mside * sc.mside * sc.mside;
+  if (v >= 0 && v < tb.v) {
+    const int m3 = tb.mside * tb.mside * tb.mside;
     const int plane = mode_code[i] == 1 ? 2 : 1;  // EXIT_SMOKE -> OCC_EXIT_SMOKE
-    Ray r = object_ray(sc, v, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
+    const float* m = tb.vtab + v * VT;
+    Ray r = object_ray(m, o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
                        d[3 * i + 1], d[3 * i + 2]);
     WalkResult w = walk<MODE_EXIT>(
-        r, sc.cube_min[3 * v], sc.cube_min[3 * v + 1], sc.cube_min[3 * v + 2],
-        sc.gridsize[v], sc.bricksize[v], sc.side, sc.mside,
-        sc.occ + ((size_t)plane * sc.v + v) * m3 * 16, BIG, active[i] != 0);
+        r, vol_entry(r, m), m, tb.side, tb.mside, tb.bm + (size_t)plane * tb.words,
+        v * m3, tb.occ + ((size_t)plane * tb.v + v) * m3 * 16, BIG, active[i] != 0);
     in_vol = w.hit;
     t = w.t_out;
     if (in_vol) {
-      normal_at(sc, v, r, t, nx, ny, nz);
-      cell = sc.grids[v * sc.side * sc.side * sc.side + w.cell];
+      normal_at(m, r, t, nx, ny, nz);
+      cell = tb.grids[v * tb.side * tb.side * tb.side + w.cell];
     }
   }
-  in_out[i] = in_vol ? 1 : 0;
-  t_out[i] = t;
-  cell_out[i] = cell;
-  nx_out[i] = nx;
-  ny_out[i] = ny;
-  nz_out[i] = nz;
+  float* of = static_cast<float*>(out);
+  int* oi = static_cast<int*>(out);
+  of[i] = t;
+  oi[(size_t)n + i] = cell;
+  of[2 * (size_t)n + i] = nx;
+  of[3 * (size_t)n + i] = ny;
+  of[4 * (size_t)n + i] = nz;
+  reinterpret_cast<uint8_t*>(of + 5 * (size_t)n)[i] = in_vol ? 1 : 0;
 }
 
-inline unsigned blocks_for(int n) { return (unsigned)((n + 127) / 128); }
+inline unsigned blocks_for(int n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
 
 extern "C" {
 
-// mode: 0 nearest, 1 occluded.  In occluded mode only hit_out is written.
+// mode: 0 nearest, 1 occluded.  t_limit and vol_enabled may be null.
 int vt_traverse(int mode, const float* o, const float* d, const float* t_limit,
-                const uint8_t* active, const uint8_t* vol_enabled,
-                const int* grids, const int* gridsize, const float* inv,
-                const float* fwd, const float* cube_min, const int* bricksize,
-                const int* occ, int n, int v, int side, int mside,
-                uint8_t* hit_out, float* t_out, int* vol_out, int* cell_out,
-                float* nx_out, float* ny_out, float* nz_out,
+                const uint8_t* active, const uint8_t* vol_enabled, const float* vtab,
+                const unsigned* bm, const int* occ, const int* grids, const float* wbox,
+                int n, int v, int side, int mside, int words, void* out,
                 cudaStream_t stream) {
-  if (v > MAX_V) return (int)cudaErrorInvalidValue;
+  if (v < 1 || v > MAX_V || (mode != MODE_NEAREST && mode != MODE_OCCLUDED))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  Scene sc{grids, gridsize, inv, fwd, cube_min, bricksize, occ, v, side, mside};
-  if (mode == MODE_NEAREST) {
-    traverse_kernel<MODE_NEAREST><<<blocks_for(n), 128, 0, stream>>>(
-        sc, o, d, t_limit, active, vol_enabled, n, hit_out, t_out, vol_out,
-        cell_out, nx_out, ny_out, nz_out);
-  } else {
-    traverse_kernel<MODE_OCCLUDED><<<blocks_for(n), 128, 0, stream>>>(
-        sc, o, d, t_limit, active, vol_enabled, n, hit_out, t_out, vol_out,
-        cell_out, nx_out, ny_out, nz_out);
-  }
+  Tables tb{vtab, bm, occ, grids, wbox, v, side, mside, words};
+  auto kernel = mode == MODE_NEAREST ? traverse_kernel<MODE_NEAREST>
+                                     : traverse_kernel<MODE_OCCLUDED>;
+  kernel<<<blocks_for(n), THREADS, 0, stream>>>(tb, o, d, t_limit, active, vol_enabled, n, out);
   return (int)cudaGetLastError();
 }
 
 int vt_exit_march(const float* o, const float* d, const uint8_t* active,
-                  const int* mode_code, const int* vol_match, const int* grids,
-                  const int* gridsize, const float* inv, const float* fwd,
-                  const float* cube_min, const int* bricksize, const int* occ,
-                  int n, int v, int side, int mside, uint8_t* in_out,
-                  float* t_out, int* cell_out, float* nx_out, float* ny_out,
-                  float* nz_out, cudaStream_t stream) {
+                  const int* mode_code, const int* vol_match, const float* vtab,
+                  const unsigned* bm, const int* occ, const int* grids,
+                  const float* wbox, int n, int v, int side, int mside, int words,
+                  void* out, cudaStream_t stream) {
   if (n == 0) return 0;
-  Scene sc{grids, gridsize, inv, fwd, cube_min, bricksize, occ, v, side, mside};
-  exit_kernel<<<blocks_for(n), 128, 0, stream>>>(sc, o, d, active, mode_code,
-                                                 vol_match, n, in_out, t_out,
-                                                 cell_out, nx_out, ny_out,
-                                                 nz_out);
+  Tables tb{vtab, bm, occ, grids, wbox, v, side, mside, words};
+  exit_kernel<<<blocks_for(n), THREADS, 0, stream>>>(tb, o, d, active, mode_code,
+                                                     vol_match, n, out);
   return (int)cudaGetLastError();
 }
 

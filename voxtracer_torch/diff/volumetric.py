@@ -506,10 +506,8 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
         occ_cells = vols.grids.reshape(-1) != MAT_NONE
         sig_min = torch.where(occ_cells, dens_flat.detach(), float("inf")).amin()
         margin = 13.8 / torch.clamp(sig_min, min=1e-6) + 1e-3
-        rec = traverse(*_vol_args(scene), o.contiguous(), d.contiguous(),
-                       torch.full((n,), BIG, dtype=F32, device=dev), valid,
-                       torch.ones(v, dtype=torch.bool, device=dev), vols.occ,
-                       vols.bricksize, mode="nearest")
+        rec = traverse(*_vol_args(scene), o.contiguous(), d.contiguous(), None, valid, None,
+                       vols.occ, vols.bricksize, mode="nearest")
         t_bound = torch.where(rec["hit"], rec["t"] + margin, BIG)
         u1 = torch.minimum(u1, torch.maximum(t_bound, u0))
 

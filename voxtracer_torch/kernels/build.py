@@ -79,8 +79,8 @@ def build() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "vt_traverse": [_I] + [_P] * 12 + [_I] * 4 + [_P] * 7 + [_P],
-    "vt_exit_march": [_P] * 12 + [_I] * 4 + [_P] * 6 + [_P],
+    "vt_traverse": [_I] + [_P] * 10 + [_I] * 5 + [_P, _P],
+    "vt_exit_march": [_P] * 10 + [_I] * 5 + [_P, _P],
     "vt_lookup_init": [_I],
     "vt_lookup_rows": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _P],
     "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _I, _P],

@@ -53,10 +53,11 @@ def normals_from(r, gs_f, fwd_rows, t):
     return wx * inv_len, wy * inv_len, wz * inv_len
 
 
-def _core(r, c, occ_flat, tl, active0, mode, tally=None):
+def _core(r, c, occ_flat, tl, active0, mode, tally=None, ray_tally=None):
     """The fetch / descend / step loop over [P, N] pair state.  Returns the
     final hit, t_hit, gidx, in_vol and t_out, and adds the walk's STEPS to
-    the dict ``tally`` if one is given."""
+    the dict ``tally`` if one is given, and per ray ([N] int64, summed
+    over the ray's pairs) to the dict ``ray_tally``."""
     is_exit = mode == "exit"
     bx, by, bz = c["bx"], c["by"], c["bz"]
     gs_f, gs_i, ms_i = c["gs_f"], c["gs_i"], c["ms_i"]
@@ -72,10 +73,14 @@ def _core(r, c, occ_flat, tl, active0, mode, tally=None):
     shape = active.shape
     steps = None if tally is None else torch.zeros(len(STEPS), dtype=torch.int64,
                                                    device=active.device)
+    per_ray = None if ray_tally is None else torch.zeros((len(STEPS), shape[-1]),
+                                                        dtype=torch.int64, device=active.device)
 
     def count(step, x):
         if steps is not None:
             steps[STEPS.index(step)] += x.sum()
+        if per_ray is not None:
+            per_ray[STEPS.index(step)] += x.sum(0)
 
     count("entries", active0)
     count("walks", active)
@@ -211,12 +216,15 @@ def _core(r, c, occ_flat, tl, active0, mode, tally=None):
     if steps is not None:
         for step, n in zip(STEPS, steps.tolist()):
             tally[step] = tally.get(step, 0) + n
+    if per_ray is not None:
+        for step, n in zip(STEPS, per_ray):
+            ray_tally[step] = ray_tally.get(step, 0) + n
     return dict(hit=hit, t_hit=t_hit, gidx=gidx, in_vol=in_vol, t_out=t_out)
 
 
 def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
                  ray_active, vol_enabled, occ, bricksize, mode="nearest",
-                 mode_code=None, vol_match=None, tally=None):
+                 mode_code=None, vol_match=None, tally=None, ray_tally=None):
     """All rays x all volumes over occupancy bitmasks.
 
     occ: [3, V, M^3, 16] int32 (core.types OCC_* planes).  Returns per-ray
@@ -224,7 +232,8 @@ def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
     "occluded": hit; "exit": in_vol, t, cell, nx, ny, nz (vol_match [N]
     names each ray's own volume, mode_code [N] its medium).  A dict
     ``tally`` gains the walk's STEPS: the work these rays need, which sets
-    the kernels' operation bound."""
+    the kernels' operation bound; a dict ``ray_tally`` gains them per ray
+    ([N] int64 each, summed over the ray's volumes)."""
     v = gridsize.shape[0]
     is_exit = mode == "exit"
     dev = o.device
@@ -253,7 +262,7 @@ def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
              gs_f=gs_f, gs_i=gridsize[:, None],
              ms_f=bricksize.to(torch.float32)[:, None], ms_i=bricksize[:, None],
              side=side, mside=mside, cell_base=vids * g3, occ_base=occ_base)
-    st = _core(r, c, occ_flat, t_limit[None, :], active0, mode, tally)
+    st = _core(r, c, occ_flat, t_limit[None, :], active0, mode, tally, ray_tally)
 
     if mode == "occluded":
         return dict(hit=st["hit"].any(0))

@@ -147,12 +147,10 @@ def find_nearest_world(scene: Scene, o, d, active):
     prim_adopt and prim_inside."""
     o3 = (cstack(o) if isinstance(o, tuple) else o).contiguous()
     d3 = (cstack(d) if isinstance(d, tuple) else d).contiguous()
-    n, dev = o3.shape[0], o3.device
     vols = scene.volumes
-    res = traverse(*_vol_args(scene), o3, d3,
-                   torch.full((n,), BIG, dtype=F32, device=dev), active,
-                   torch.ones(vols.n, dtype=torch.bool, device=dev),
-                   vols.occ, vols.bricksize, mode="nearest")
+    # no t limit, every volume enabled
+    res = traverse(*_vol_args(scene), o3, d3, None, active, None, vols.occ, vols.bricksize,
+                   mode="nearest")
     t, vol = res["t"], res["vol"]
     mat = torch.where(res["hit"], res["cell"], MAT_NONE)
     nrm = (res["nx"], res["ny"], res["nz"])
@@ -185,9 +183,8 @@ def is_occluded_world(scene: Scene, o, d, t_limit, active):
     o3 = (cstack(o) if isinstance(o, tuple) else o).contiguous()
     d3 = (cstack(d) if isinstance(d, tuple) else d).contiguous()
     vols = scene.volumes
-    res = traverse(*_vol_args(scene), o3, d3, t_limit, active,
-                   torch.ones(vols.n, dtype=torch.bool, device=o3.device),
-                   vols.occ, vols.bricksize, mode="occluded")
+    res = traverse(*_vol_args(scene), o3, d3, t_limit, active, None, vols.occ,
+                   vols.bricksize, mode="occluded")
     occ = res["hit"]
     occ = occ | spheres_occluded(scene.spheres, o3, d3, t_limit)
     return occ | triangles_occluded(scene.triangles, o3, d3, t_limit)
