@@ -20,7 +20,15 @@ drives the port's two halves of the main path through its entry points:
   the media scene (render/reproject.render_reproject_frame);
 * the kernel probes (voxtracer_torch.probe.main): the lane gather, the
   2048-entry gather and the DDA-shaped ALU loop, each held against its
-  plain version at B = 32, 256 and 1024 first.
+  plain version at B = 32, 256 and 1024 first;
+* a scene past 64 volumes: the 1080p 4-bounce frame of the city_xl-layout
+  stand-in (111 volumes of 64^3, 5 pages) with the bounce reorder on
+  "auto", in one K1/K2 launch over all volumes as the port runs it on the
+  card, timed against a launch a page (the CPU path's page-by-page walk,
+  swapped in) and against the frame without the reorder; K1 and K2 on
+  every call of that frame, each held against the plain version and
+  against the paged walk (bit for bit), with the rays each page's cull
+  keeps, and timed once more with the floor's page first.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -51,12 +59,19 @@ host clock around the R enqueues). K1, K2, K4 and K4-bwd are also timed
 on the calls the path really makes, captured from one 1080p frame, one
 whitted 512x512 frame and one binned gradient: K1 and K2 on every call,
 each held against the plain version (whose walk steps give the call's
-bound); K4 and K4-bwd at the largest call of each table shape.  With ``--baseline DIR`` (an
-unpacked checkout of an earlier commit) the script also times that
-checkout's K1, K2, K4 and K4-bwd on the same inputs, in turns with this
-one's (baseline, this, this, baseline), prints its ptxas report, and
-times the 1080p frame with its K1/K2 swapped in, in turns. Step times are
-host clocks around synchronised runs, 1 warm-up and 3 reps.
+bound); K4 and K4-bwd at the largest call of each table shape, K4-bwd
+also on one-signed rows at the brick-sigma shape.  K3 is timed on every
+exit call of the whitted frame, one media 256x256 path frame and two
+media reproject frames, beside an empty launch of the same grid (the
+launch floor); of a ray that does not march K3 returns zeros where the
+plain version returns its entry t, which no caller reads, so K3 is held
+to the plain version on the marching rays (and in in_vol and cell
+everywhere).  With ``--baseline DIR`` (an unpacked checkout of an
+earlier commit) the script also times that checkout's K1, K2, K3, K4 and
+K4-bwd on the same inputs, in turns with this one's (baseline, this,
+this, baseline), prints its ptxas report, and times the 1080p frame with
+its K1/K2 swapped in, in turns. Step times are host clocks around
+synchronised runs, 1 warm-up and 3 reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -97,7 +112,14 @@ WALK_OPS = dict(entries=120, walks=146, rows=12, descends=54, cells=41, bricks=1
 BOX_OPS = 24
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's line ("[n] ...") gets the seconds since the
+    script started."""
+    if a and isinstance(a[0], str) and a[0].startswith("["):
+        a = (f"{a[0]} [t+{time.perf_counter() - _T0:.0f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -305,35 +327,48 @@ def captured_lookups(calls):
             setattr(mod, attr, fn)
 
 
-# the ray-side arguments of traverse(): o, d, t_limit, ray_active, vol_enabled
+# the ray-side arguments of traverse(): o, d, t_limit, ray_active, vol_enabled;
+# of exit_march(): o, d, ray_active, mode_code, vol_match
 RAY_ARGS = range(5, 10)
+# the most (volume, ray) pairs the plain walk holds at a time
+PLAIN_PAIRS = 8 << 20
 
 
 @contextlib.contextmanager
 def captured_traversals(calls):
     """Swap recording wrappers into the bindings through which the port
-    reaches K1 and K2 (the integrator's and the relaxed march's, as
-    ``plain_versions`` swaps) and append each call to `calls` as (mode,
-    args): a copy of its ray-side arguments (None kept), the scene's
-    tensors as they are."""
+    reaches K1, K2 (the integrator's and the relaxed march's, as
+    ``plain_versions`` swaps) and K3 (the integrator's) and append each
+    call to `calls` as (mode, args), mode "exit" for K3: a copy of its
+    ray-side arguments (None kept), the scene's tensors as they are."""
     from voxtracer_torch.diff import volumetric
     from voxtracer_torch.render import integrator
 
+    def copied(args):
+        return tuple(a.detach().clone() if i in RAY_ARGS and a is not None else a
+                     for i, a in enumerate(args))
+
     def wrap(fn):
         def rec(*args, mode="nearest"):
-            calls.append((mode, tuple(a.detach().clone() if i in RAY_ARGS and a is not None
-                                      else a for i, a in enumerate(args))))
+            calls.append((mode, copied(args)))
             return fn(*args, mode=mode)
         return rec
 
-    kept = [(mod, mod.traverse) for mod in (integrator, volumetric)]
-    for mod, fn in kept:
-        mod.traverse = wrap(fn)
+    def wrap_exit(fn):
+        def rec(*args):
+            calls.append(("exit", copied(args)))
+            return fn(*args)
+        return rec
+
+    kept = [(mod, "traverse", mod.traverse) for mod in (integrator, volumetric)]
+    kept.append((integrator, "exit_march", integrator.exit_march))
+    for mod, attr, fn in kept:
+        setattr(mod, attr, (wrap_exit if attr == "exit_march" else wrap)(fn))
     try:
         yield calls
     finally:
-        for mod, fn in kept:
-            mod.traverse = fn
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
 
 
 def explicit(args):
@@ -368,6 +403,58 @@ def same_traversal(k, p, what):
     return max(nerr, max_err(k["t"], p["t"]))
 
 
+def plain_traversal(args, mode):
+    """The plain version of one K1 or K2 call.  It holds [V, N] pair
+    tensors, so only the active rays walk (an idle ray's result is a miss:
+    t BIG, vol -2, cell MAT_NONE, a zero normal), at most PLAIN_PAIRS
+    (volume, ray) pairs at a time."""
+    import torch
+
+    from voxtracer_torch.core.types import MAT_NONE
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.kernels.dda import BIG
+
+    n, chunk = args[5].shape[0], max(4096, PLAIN_PAIRS // args[1].shape[0])
+    if n <= chunk:
+        return traverse.traverse_plain(*args, mode=mode)
+    rays = args[8].nonzero()[:, 0]
+    parts = []
+    for i in range(0, rays.shape[0], chunk):
+        a, sub = list(args), rays[i:i + chunk]
+        for j in (5, 6, 7, 8):
+            a[j] = None if args[j] is None else args[j][sub]
+        parts.append(traverse.traverse_plain(*a, mode=mode))
+    dev = args[5].device
+    out = dict(hit=torch.zeros(n, dtype=torch.bool, device=dev))
+    if mode == "nearest":
+        out.update(t=torch.full((n,), BIG, device=dev),
+                   cell=torch.full((n,), MAT_NONE, dtype=torch.int32, device=dev),
+                   vol=torch.full((n,), -2, dtype=torch.int32, device=dev),
+                   **{c: torch.zeros(n, device=dev) for c in ("nx", "ny", "nz")})
+    for f in out:
+        if parts:
+            out[f][rays] = torch.cat([p[f] for p in parts]).to(out[f].dtype)
+    return out
+
+
+def same_exit(k, p, act, what):
+    """K3's result k against its plain version's p on the rays that march
+    (`act`): in_vol and cell identical, t within 1e-6, normals within 1e-5;
+    on every ray in_vol and cell identical, and zeros from the kernel where
+    the plain version leaves an idle ray's entry t (no caller reads it)
+    -> the largest error of t and the normals."""
+    import torch
+
+    for f in ("in_vol", "cell"):
+        check(torch.equal(k[f], p[f].to(k[f].dtype)), f"{what}: {f} differs")
+    check(torch.allclose(k["t"][act], p["t"][act], rtol=1e-6, atol=1e-6), f"{what}: t")
+    nerr = max(max_err(k[c][act], p[c][act]) for c in ("nx", "ny", "nz"))
+    check(nerr <= 1e-5, f"{what}: normals {nerr}")
+    for f in ("t", "nx", "ny", "nz"):
+        check(not bool(k[f][~act].any()), f"{what}: {f} of an idle ray is not 0")
+    return max(nerr, max_err(k["t"][act], p["t"][act]))
+
+
 def least_traversal_ops(args, mode, out):
     """The operations one K1 or K2 call needs at least, from the plain walk
     of each enabled volume alone (per-ray step counts, so no volume's walk
@@ -384,7 +471,7 @@ def least_traversal_ops(args, mode, out):
 
     from voxtracer_torch.kernels import traverse
     from voxtracer_torch.kernels.dda import BIG
-    from voxtracer_torch.kernels.dda_occ import STEPS
+    from voxtracer_torch.kernels.dda_occ import STEPS, entry_t
 
     g, gs, inv, fwd, cmin, o, d, tl, act, ven, occ, bsz = args
     v, n = gs.shape[0], o.shape[0]
@@ -394,34 +481,48 @@ def least_traversal_ops(args, mode, out):
         above = torch.nextafter(out["t"], torch.full_like(out["t"], math.inf))
         tl = torch.where(out["hit"], torch.minimum(tl, above), tl)
     g3 = g.shape[0] // v
-    costs, hits, steps = [], [], []
+    # per ray: the walks' cost and steps summed over the volumes counted; for
+    # K2 the cheapest walk to a hit and its steps
+    total = torch.zeros(n, dtype=torch.int64, device=o.device)
+    steps = torch.zeros((len(STEPS), n), dtype=torch.int64, device=o.device)
+    cheap = torch.full((n,), torch.iinfo(torch.int64).max, device=o.device)
+    cheap_steps = torch.zeros_like(steps)
+    enabled = 0
     for i in range(v):
         if ven is not None and not bool(ven[i]):
             continue
+        enabled += 1
+        # only the rays that enter the volume's cube walk it (the walk's own
+        # entry test): the others cost no walk, and are left out of it
+        sub = (act & (entry_t(inv[i:i + 1], cmin[i:i + 1], o, d)[0] < 1e33)).nonzero()[:, 0]
+        if sub.numel() == 0:
+            continue
         rt = {}
         r = traverse.traverse_plain(g[i * g3:(i + 1) * g3], gs[i:i + 1], inv[i:i + 1],
-                                    fwd[i:i + 1], cmin[i:i + 1], o, d, tl, act, None,
-                                    occ[:, i:i + 1], bsz[i:i + 1], mode="occluded", ray_tally=rt)
+                                    fwd[i:i + 1], cmin[i:i + 1], o[sub], d[sub], tl[sub],
+                                    act[sub], None, occ[:, i:i + 1], bsz[i:i + 1],
+                                    mode="occluded", ray_tally=rt)
         # the entry test only for the pairs walked
         rt["entries"] = rt["walks"]
-        costs.append(sum(WALK_OPS[k] * rt[k] for k in STEPS))
-        hits.append(r["hit"])
-        steps.append(torch.stack([rt[k] for k in STEPS]))
-    if not costs:
+        st = torch.stack([rt[k] for k in STEPS])
+        cost = sum(WALK_OPS[k] * rt[k] for k in STEPS)
+        total[sub] += cost
+        steps[:, sub] += st
+        if mode == "occluded":
+            better = r["hit"] & (cost < cheap[sub])
+            cheap[sub] = torch.where(better, cost, cheap[sub])
+            cheap_steps[:, sub] = torch.where(better[None], st, cheap_steps[:, sub])
+    if not enabled:
         return 0, dict.fromkeys(STEPS, 0)
-    cost, hit, steps = torch.stack(costs), torch.stack(hits), torch.stack(steps)
-    walked = torch.ones_like(hit)
-    boxes = BOX_OPS * len(costs) * act.long()
+    boxes = BOX_OPS * enabled * act.long()
     if mode == "occluded":
-        # an occluded ray: only its cheapest volume to a hit
-        cheapest = torch.where(hit, cost, torch.iinfo(torch.int64).max).argmin(0)
-        occluded = hit.any(0)
-        walked = torch.where(occluded[None], torch.arange(len(costs), device=o.device)[:, None]
-                             == cheapest[None], walked)
+        # an occluded ray: one box test and only its cheapest volume to a hit
+        occluded = cheap < torch.iinfo(torch.int64).max
+        total = torch.where(occluded, cheap, total)
+        steps = torch.where(occluded[None], cheap_steps, steps)
         boxes = torch.where(occluded, BOX_OPS, boxes)
-    ops = int(boxes.sum()) + int(torch.where(walked, cost, 0).sum())
-    per_step = (steps * walked[:, None]).sum((0, 2))
-    return ops, dict(zip(STEPS, per_step.tolist()))
+    ops = int(boxes.sum()) + int(total.sum())
+    return ops, dict(zip(STEPS, steps.sum(1).tolist()))
 
 
 def traverse_bound(args, out, mode):
@@ -438,6 +539,16 @@ def traverse_bound(args, out, mode):
         by += 4 * int(out["hit"].sum())
     ops, steps = least_traversal_ops(args, mode, out)
     return bound(by, ops), steps
+
+
+def exit_bound(args, out, tally):
+    """The bound of one exit_march() call: the bytes of its marching rays
+    (origin, direction, medium code, volume), the active flags, the two
+    exit planes, its outputs and one grid cell per ray that left its medium
+    inside the grid; the operations of the plain walk's steps (`tally`)."""
+    act, occ = args[7], args[10]
+    by = act.numel() + 32 * int(act.sum()) + nbytes(occ[1:]) + nbytes(*out.values())
+    return bound(by + 4 * int(out["in_vol"].sum()), walk_ops(tally))
 
 
 def check(cond, msg):
@@ -525,9 +636,11 @@ def main(argv=None) -> int:
     from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, probes, traverse
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
+    from voxtracer_torch.kernels.dda_occ import entry_t
     from voxtracer_torch.render import integrator, reproject
     from voxtracer_torch.render.camera import primary_rays
-    from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
+    from voxtracer_torch.scene.presets import (city_xl_like_path, glass_sphere_box, media_path,
+                                               monu_like_path)
 
     dev = torch.device("cuda", 0)
 
@@ -600,17 +713,21 @@ def main(argv=None) -> int:
     def counts():
         return dict(traverse.launches, **lookup.launches, **probes.launches)
 
-    def time_traversal(label, mode, args, plain_too=False):
+    def time_traversal(label, mode, args, plain_too=False, with_base=True):
         """K1 or K2 on one call: held against the plain version; then per
-        launch the kernel, the baseline's in turns and, if plain_too, the
-        plain version -> (the call's entry, kernel, plain or None, bound)."""
+        launch the kernel, the baseline's in turns (unless with_base is off:
+        a baseline may refuse the call's volume count) and, if plain_too,
+        the plain version -> (the call's entry, kernel, plain or None,
+        bound)."""
         k = traverse.traverse(*args, mode=mode)
-        p = traverse.traverse_plain(*args, mode=mode)
+        p = plain_traversal(args, mode)
         err = same_traversal(k, p, label)
+        del p
         bnd, least = traverse_bound(args, k, mode)
         ex = explicit(args)
         kern, turns = in_turns(lambda: traverse.traverse(*args, mode=mode),
-                               base_tr and (lambda: base_tr.traverse(*ex, mode=mode)))
+                               (lambda: base_tr.traverse(*ex, mode=mode))
+                               if base_tr and with_base else None)
         plain = (per_launch(functools.partial(traverse.traverse_plain, *args, mode=mode),
                             windows=3) if plain_too else None)
         nr, na, nh = args[5].shape[0], int(args[8].sum()), int(k["hit"].sum())
@@ -685,19 +802,15 @@ def main(argv=None) -> int:
 
     tally3 = {}
     k3, p3 = exit_k(), exit_p(tally3)
-    for f in ("in_vol", "cell"):
-        check(torch.equal(k3[f], p3[f].to(k3[f].dtype)), f"K3 {f} differs")
-    check(torch.allclose(k3["t"], p3["t"], rtol=1e-6, atol=1e-6), "K3 t")
-    nerr3 = max(max_err(k3[c], p3[c]) for c in ("nx", "ny", "nz"))
-    check(nerr3 <= 1e-5, f"K3 normals {nerr3}")
+    err3 = same_exit(k3, p3, emask, "K3")
     left = int(k3["in_vol"].sum())
     log(f"    K3: {int(glass.sum())} glass + {int(smoke.sum())} smoke rays of {mn}, "
         f"{left} left their medium inside the grid; plain walk steps {tally3}")
     report("exit_march", "voxtracer_torch/csrc/traverse.cu",
-           "voxtracer/kernels/pallas_dda.py:903", max(nerr3, max_err(k3["t"], p3["t"])),
+           "voxtracer/kernels/pallas_dda.py:903", err3,
            per_launch(exit_k), per_launch(exit_p),
-           bound(nbytes(eo, md, emask, code, evol, mv.occ[1:], *k3.values()) + 4 * left,
-                 walk_ops(tally3)), None)
+           exit_bound((*mvargs, eo, md, emask, code, evol, mv.occ, mv.bricksize), k3, tally3),
+           None)
 
     # K4 over the material table, 2,073,600 random ids, out-of-range ones
     # included (timed in [7], at the shapes and ids the path makes)
@@ -832,8 +945,25 @@ def main(argv=None) -> int:
         ends.append(len(tcalls))
         train.binned_grads(params, scene, plan)
     torch.cuda.synchronize()
-    traced = {"path 1080p frame": tcalls[:ends[0]], "whitted 512^2 frame": tcalls[ends[0]:ends[1]],
-              "gradient": tcalls[ends[1]:]}
+    # K3's calls: the whitted frame's, then those of the media 256^2 path
+    # frame and of two media reproject frames
+    mcalls = []
+    with captured_traversals(mcalls):
+        integrator.render_tiled(mscene, mcfg, key, 1, 1)
+        ends.append(len(mcalls))
+        mh_ = torch.zeros((mcfg.height, mcfg.width, 3), device=dev)
+        for i in range(2):
+            _, mh_, _ = reproject.render_reproject_frame(
+                mscene, dataclasses.replace(mcfg, mode="reproject"), mscene.camera, mh_,
+                fold_in(key, i))
+    torch.cuda.synchronize()
+    exits = {"whitted 512^2 frame": [a for m_, a in tcalls[ends[0]:ends[1]] if m_ == "exit"],
+             "media 256^2 path frame": [a for m_, a in mcalls[:ends[2]] if m_ == "exit"],
+             "media 256^2 reproject, 2 frames": [a for m_, a in mcalls[ends[2]:] if m_ == "exit"]}
+    del mcalls
+    traced = {"path 1080p frame": [c for c in tcalls[:ends[0]] if c[0] != "exit"],
+              "whitted 512^2 frame": [c for c in tcalls[ends[0]:ends[1]] if c[0] != "exit"],
+              "gradient": [c for c in tcalls[ends[1]:] if c[0] != "exit"]}
     for pth, want in (("path 1080p frame", ("nearest", "occluded")),
                       ("whitted 512^2 frame", ("nearest", "occluded")), ("gradient", ("nearest",))):
         for mode in want:
@@ -907,6 +1037,39 @@ def main(argv=None) -> int:
              for v in ("shared", "direct")})
         shapes["lookup_rows_bwd"].append(entry)
         first.setdefault("lookup_rows_bwd", m_)
+    # K4-bwd on one-signed rows at the brick-sigma shape, where the plan
+    # (which reads shapes only) picks the direct accumulator: the gradient's
+    # own ids with the zero rows replaced, then 2,918,400 rows on 4 bricks,
+    # then on 1; both accumulators are held to the tolerance
+    ct_b, idx_b, _ = calls[("bwd", k_b, 1)]
+    fill = torch.rand(ct_b.shape, generator=gen, device=dev) + 0.5
+    n_c = 2_918_400
+    four = torch.randint(0, k_b, (4,), generator=gen, device=dev, dtype=torch.int32)
+    ct_c = torch.rand((n_c, 1), generator=gen, device=dev) + 0.5
+    one_signed = {
+        f"the gradient's {idx_b.shape[0]} ids, zero rows replaced":
+            (torch.where(ct_b == 0, fill, ct_b.abs()), idx_b),
+        f"{n_c} rows on 4 bricks":
+            (ct_c, four[torch.randint(0, 4, (n_c,), generator=gen, device=dev)].contiguous()),
+        f"{n_c} rows on 1 brick": (ct_c, four[:1].expand(n_c).contiguous())}
+    for what, (ct_, idx_) in one_signed.items():
+        planned = lookup.bwd_plan(ct_.shape[0], k_b, 1, lookup.device_consts(0)[0])[0]
+        errs = {v: bwd_err(ct_, idx_, k_b, v)[1] for v in ("shared", "direct")}
+        if base is not None:  # the baseline's direct accumulator, not held
+            want = lookup.lookup_rows_bwd_plain(ct_, idx_, k_b)
+            tol = 1e-5 * lookup.lookup_rows_bwd_plain(ct_.abs(), idx_, k_b) + 1e-6
+            errs["baseline direct"] = float(
+                ((base.lookup_rows_bwd(ct_, idx_, k_b, acc="direct") - want).abs() / tol).max())
+        kern, turns = in_turns(lambda: lookup.lookup_rows_bwd(ct_, idx_, k_b),
+                               base and (lambda: base.lookup_rows_bwd(ct_, idx_, k_b)))
+        log(f"    K4-bwd [{k_b}, 1] one-signed, {what}: plan acc={planned}; error / tolerance "
+            + ", ".join(f"{v} {r:.3g}" for v, r in errs.items())
+            + f"; kernel {kern[0]:.4f} ms ({kern[1]:.1f} us host)" + turns_text(turns)
+            + f" ({smi})")
+        shapes["lookup_rows_bwd"].append(dict(shape=f"K4-bwd [{k_b}, 1] one-signed, {what}",
+                                              ms=kern[0], host_us=kern[1], plan=planned,
+                                              error_over_tolerance=errs, turns=turns))
+    del one_signed, ct_b, ct_c, fill
     # each JSON entry: the first shape (material [256,6]; albedo [256,3]),
     # the others under "shapes"
     for kname, replaces, err in (("lookup_rows", "voxtracer/kernels/lookup.py:33", 0.0),
@@ -929,6 +1092,42 @@ def main(argv=None) -> int:
             next(r for r in results if r["name"] == f"traverse_{mode}") \
                 .setdefault("calls", []).append(entry)
     del tcalls, traced
+
+    # K3 on every exit call of the whitted frame and the media frames, each
+    # held against the plain version; beside each the launch floor: an
+    # empty launch of the same grid
+    log("[7] K3 on the exit calls of one whitted 512x512 frame, one media 256x256 path frame "
+        "and two media reproject frames:")
+    k3_entry = next(r for r in results if r["name"] == "exit_march")
+    for pth, cl in exits.items():
+        check(len(cl) > 0, f"no exit march in the {pth}")
+        for i, args in enumerate(cl):
+            label = f"{pth}, K3 call {i}"
+            tally = {}
+            k = traverse.exit_march(*args)
+            err = same_exit(k, traverse.exit_march_plain(*args, tally=tally), args[7], label)
+            bnd = exit_bound(args, k, tally)
+            kern, turns = in_turns(lambda: traverse.exit_march(*args),
+                                   base_tr and (lambda: base_tr.exit_march(*args)))
+            nr, na = args[5].shape[0], int(args[7].sum())
+            floor = per_launch(lambda: traverse.launch_floor(nr, dev))
+            least = max(bnd[0], floor[0])
+            log(f"    {label}: {nr} rays, {na} march, {int(k['in_vol'].sum())} leave inside the "
+                f"grid; kernel {kern[0]:.4f} ms ({kern[1]:.1f} us host) = {bnd[0] / kern[0]:.0%} "
+                f"of bound {bnd[0]:.4f} ms ({bnd[1]}; bytes {bnd[2]:.4f} ms, operations "
+                f"{bnd[3]:.4f} ms), {least / kern[0]:.0%} of the larger of the bound and the "
+                f"launch floor {floor[0]:.4f} ms ({floor[1]:.1f} us host)" + turns_text(turns)
+                + f" ({smi})")
+            entry = dict(call=label, path=pth, rays=nr, active=na, ms=kern[0], host_us=kern[1],
+                         bound_ms=bnd[0], bound_by=bnd[1], share=bnd[0] / kern[0],
+                         floor_ms=floor[0], share_of_bound_or_floor=least / kern[0],
+                         max_abs_err=err)
+            if turns:
+                entry.update(
+                    baseline_ms=statistics.mean(ms for ms, _ in turns["baseline"]),
+                    baseline_host_us=statistics.mean(us for _, us in turns["baseline"]))
+            k3_entry.setdefault("calls", []).append(entry)
+    del exits
 
     # ---- 8. the gradient half of the main path, counted, then the fused
     # step (forward frame + gradient) timed
@@ -1164,12 +1363,184 @@ def main(argv=None) -> int:
               f"probe {r['probe']} [B={r['B']}]: {r['ns']} ns/idx")
     log(f"[15] voxtracer_torch.probe: {len(measured)} probes; launches {probe_counts}")
 
+    # ---- 16. past 64 volumes: the city_xl-layout stand-in (110 procedural
+    # 64^3 buildings and the floor, 5 pages), one 1080p 4-bounce frame
+    # through the entry point with the bounce reorder on "auto", counted;
+    # then timed as the port runs it (one launch over all volumes), with a
+    # launch a page (the page-by-page walk of the CPU path, swapped in here
+    # for the card) and without the reorder
+    t0 = time.perf_counter()
+    cscene, ccfg = city_xl_like_path(1920, 1080)
+    cscene = cscene.to(dev)
+    cv = cscene.volumes
+    check(cv.n == 111 and len(cv.pages) == 5, f"city layout: {cv.n} volumes")
+    check(integrator._pages(cscene, cv.inv) is None, "the card walks pages")
+    log(f"[16] city_xl-layout stand-in: {cv.n} volumes of {cv.pad_size}^3 in pages "
+        f"{[(p.vol_off, p.n) for p in cv.pages]} (walk order), grids "
+        f"{nbytes(cv.grids) / 2**20:.0f} MiB, occupancy {nbytes(cv.occ) / 2**20:.0f} MiB; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    cimg = integrator.render_tiled(cscene, ccfg, key, 1, 1)
+    torch.cuda.synchronize()
+    city_counts = counts()
+    for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+        check(city_counts[kk] > 0, f"{kk} not launched by the 111-volume frame")
+    cmean = float(cimg.mean())
+    check(tuple(cimg.shape) == (1080, 1920, 3), f"city image shape {tuple(cimg.shape)}")
+    check(bool(torch.isfinite(cimg).all()), "city image has non-finite values")
+    check(0.02 < cmean < 10.0, f"city image mean {cmean}")
+    log(f"[16] 111 volumes, 1080p path frame, reorder auto: mean {cmean:.4f}; launches "
+        f"{city_counts}")
+
+    def paged_on_card(scene_, rays):
+        return scene_.volumes.pages if integrator._is_paged(scene_) else None
+
+    def city_frame(pages_fn=None, **cfg_kw):
+        kept = integrator._pages
+        if pages_fn is not None:
+            integrator._pages = pages_fn
+        try:
+            return host_times(lambda: integrator.render_tiled(
+                cscene, dataclasses.replace(ccfg, **cfg_kw), fold_in(key, 1), 1, 1))
+        finally:
+            integrator._pages = kept
+
+    for what, kw in (("one launch, reorder auto", {}),
+                     ("a launch a page, reorder auto", dict(pages_fn=paged_on_card)),
+                     ("one launch, reorder none", dict(bounce_reorder="none")),
+                     ("a launch a page, reorder none", dict(pages_fn=paged_on_card,
+                                                            bounce_reorder="none")),
+                     ("one launch, reorder auto, again", {})):
+        med, lo, spread, times = city_frame(**kw)
+        log(f"[16] 111 volumes 1920x1080, 4 bounces, {what}: median {med:.1f} ms, min {lo:.1f} "
+            f"ms, spread {spread:.1f} ms -> {n / med / 1e3:.3f} Mrays/s ({smi}); reps {times}")
+
+    # K1 and K2 on every call of that frame (reorder auto): one launch
+    # against the plain walk and against a launch a page; how many rays each
+    # page's cull keeps; then one launch with the floor's page first
+    ccalls = []
+    with captured_traversals(ccalls):
+        integrator.render_tiled(cscene, ccfg, key, 1, 1)
+    torch.cuda.synchronize()
+    floor_page = int((cv.gridsize == 1).nonzero()[0, 0]) // 24
+    first = list(range(24 * floor_page, min(24 * floor_page + 24, cv.n)))
+    perm = torch.tensor(first + [i for i in range(cv.n) if i not in first], device=dev)
+    fvargs = (cv.grids[perm].reshape(-1), cv.gridsize[perm], cv.inv[perm], cv.fwd[perm],
+              cv.cube_min[perm])
+    focc, fbsz = cv.occ[:, perm].contiguous(), cv.bricksize[perm]
+    log("[16] K1 and K2 on the calls of the 111-volume 1080p frame:")
+    seen = {}
+    for mode, args in ccalls:
+        i = seen[mode] = seen.get(mode, -1) + 1
+        label = f"city_xl_like 1080p frame, {('K1', 'K2')[mode == 'occluded']} call {i}"
+        entry = time_traversal(label, mode, args, with_base=False)[0]
+        entry["path"] = "city_xl_like 1080p frame"
+        o_, d_, tl_, act_ = args[5:9]
+        kept_rays = []
+
+        def counting(*a, mode="nearest"):
+            kept_rays.append(int(a[8].sum()))
+            return traverse.traverse(*a, mode=mode)
+
+        integrator.traverse = counting
+        try:
+            g = integrator._paged_traverse(cscene, o_, d_, tl_, act_, None, mode)
+        finally:
+            integrator.traverse = traverse.traverse
+        k = traverse.traverse(*args, mode=mode)
+        for f in k:
+            check(torch.equal(k[f], g[f]), f"{label}: a launch a page differs in {f}")
+        fargs = (*fvargs, o_, d_, tl_, act_, None, focc, fbsz)
+        kf = traverse.traverse(*fargs, mode=mode)
+        check(torch.equal(k["hit"], kf["hit"]), f"{label}: floor page first differs in hit")
+        other_vol = 0
+        if mode == "nearest":
+            check(torch.equal(k["t"], kf["t"]), f"{label}: floor page first differs in t")
+            # an exact tie can go to another volume in another order
+            other_vol = int((torch.where(k["hit"], perm[kf["vol"].clamp(min=0).long()]
+                                         .to(torch.int32), -2) != k["vol"]).sum())
+        one, paged, paged2, one2, ffirst = (per_launch(f) for f in (
+            lambda: traverse.traverse(*args, mode=mode),
+            lambda: integrator._paged_traverse(cscene, o_, d_, tl_, act_, None, mode),
+            lambda: integrator._paged_traverse(cscene, o_, d_, tl_, act_, None, mode),
+            lambda: traverse.traverse(*args, mode=mode),
+            lambda: traverse.traverse(*fargs, mode=mode)))
+        log(f"      one launch {one[0]:.4f} / {one2[0]:.4f} ms ({one[1]:.1f} us host), a launch a "
+            f"page {paged[0]:.4f} / {paged2[0]:.4f} ms ({paged[1]:.1f} us host), pages keep "
+            f"{kept_rays} of {int(act_.sum())} active rays; one launch, floor page first "
+            f"{ffirst[0]:.4f} ms, {other_vol} rays with another volume id ({smi})")
+        entry.update(paged_ms=statistics.mean((paged[0], paged2[0])), paged_host_us=paged[1],
+                     page_rays=kept_rays, floor_first_ms=ffirst[0])
+        next(r for r in results if r["name"] == f"traverse_{mode}")["calls"].append(entry)
+    # the same frame's calls without the reorder, kernel times only: what
+    # the re-clustering buys K1 and K2
+    ncalls = []
+    with captured_traversals(ncalls):
+        integrator.render_tiled(cscene, dataclasses.replace(ccfg, bounce_reorder="none"), key,
+                                1, 1)
+    torch.cuda.synchronize()
+    for mode in ("nearest", "occluded"):
+        ms_r = [e["ms"] for e in next(r for r in results if r["name"] == f"traverse_{mode}")
+                ["calls"] if e["path"] == "city_xl_like 1080p frame"]
+        ms_n = [per_launch(lambda: traverse.traverse(*a, mode=mode))[0]
+                for m_, a in ncalls if m_ == mode]
+        log(f"[16] {('K1', 'K2')[mode == 'occluded']} calls of the frame, ms: reorder auto "
+            + " / ".join(f"{x:.4f}" for x in ms_r) + f" (sum {sum(ms_r):.4f}); reorder none "
+            + " / ".join(f"{x:.4f}" for x in ms_n) + f" (sum {sum(ms_n):.4f}) ({smi})")
+    del ncalls
+    # what one reorder costs: the sort key, the stable sort, the gather and
+    # the packing and unpacking, on the rays of the frame's second K1 call
+    o_, d_, _, act_ = [a for m_, a in ccalls if m_ == "nearest"][1][5:9]
+    pk = torch.zeros((integrator._PK_ROWS, n), device=dev)
+    pk[0:3], pk[3:6], pk[integrator._PK_ACTIVE] = o_.t(), d_.t(), act_.float()
+    wlo, whi = integrator._world_bounds(cscene)
+    wspan = torch.clamp(whi - wlo, min=1e-6)
+    mkey = integrator._morton_key(pk, wlo, wspan)
+    mperm = torch.sort(mkey, stable=True)[1]
+    reorder_ms = {name: per_launch(f)[0] for name, f in (
+        ("key", lambda: integrator._morton_key(pk, wlo, wspan)),
+        ("stable sort", lambda: torch.sort(mkey, stable=True)),
+        ("gather", lambda: pk.index_select(1, mperm)),
+        ("pack + unpack", lambda: integrator._pack_path(integrator._unpack_path(pk)[0],
+                                                        pk[integrator._PK_PIX])))}
+    log(f"[16] one reorder of {n} rays ({int(act_.sum())} active): "
+        + ", ".join(f"{k_} {v_:.3f} ms" for k_, v_ in reorder_ms.items()) + f" ({smi})")
+    pmin_ms = per_launch(lambda: [entry_t(p_.inv, p_.cube_min, o_, d_).amin(0)
+                                  for p_ in cv.pages], windows=3)[0]
+    log(f"[16] the paged walk's entry pass over the 5 pages (plain torch): {pmin_ms:.3f} ms "
+        f"a call ({smi})")
+    del ccalls, fvargs, focc, pk
+
+    # ---- 17. a 256x128 frame of that scene through the kernels vs the plain
+    # versions: as the preset renders it (below "auto"'s ray count: no
+    # reorder), held to the image gate; then with the reorder forced on.
+    # There one ulp in a bounce origin (t within 1e-6) can move a ray across
+    # a sort cell, and every lane between its two places then draws another
+    # sample: such a pixel differs by Monte-Carlo noise, not by an error, so
+    # that frame is held to at most 1% of pixels off by more than 1e-3 (the
+    # path tolerance of the CPU tests against the JAX package)
+    c2 = dataclasses.replace(ccfg, width=256, height=128)
+    a = integrator.render_tiled(cscene, c2, key, 1, 1)
+    c2r = dataclasses.replace(c2, bounce_reorder="always")
+    ar = integrator.render_tiled(cscene, c2r, key, 1, 1)
+    with plain_versions():
+        b = integrator.render_tiled(cscene, c2, key, 1, 1)
+        br = integrator.render_tiled(cscene, c2r, key, 1, 1)
+    frac, dmax = pixels_off(a, b)
+    rfrac = float(((ar - br).abs().amax(-1) > 1e-3).float().mean())
+    check(rfrac <= 0.01, f"reordered frame: {rfrac:.4%} of pixels differ by more than 1e-3")
+    check(float(((ar - a).abs().amax(-1) > 1e-3).float().mean()) > 0.05,
+          "the reorder changed no samples")
+    log(f"[17] 111 volumes 256x128 kernels vs plain: max diff {dmax:.3g}, "
+        f"{frac:.4%} of pixels differ by more than 1e-3; reorder forced on: {rfrac:.4%}")
+    del cscene, cv
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
-             "probe": probe_counts}
+             "probe": probe_counts, "city_xl_like 1080p frame": city_counts}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:

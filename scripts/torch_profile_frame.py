@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the port's forward frame or gradient step goes, on one GPU.
 
-    python scripts/torch_profile_frame.py [--step frame|grad|fused|whitted|reproject]
+    python scripts/torch_profile_frame.py [--step frame|grad|fused|whitted|reproject|city]
                                           [--width 1920 --height 1080 --bounces 4]
+                                          [--reorder auto|always|none]
 
 Runs one step under torch.profiler after two warm-up steps.  On the
 asset-free monu-like scene: "frame" renders the path-traced frame
@@ -12,7 +13,8 @@ asset-free monu-like scene: "frame" renders the path-traced frame
 static-camera frame against the history of the frames before it
 (render/reproject.render_reproject_frame).  "whitted" renders
 glass_sphere_box through the branch queue at the given width (default
-512x512, depth 5).  Prints the device time by kernel (top 25), the
+512x512, depth 5); "city" the path-traced frame of the 111-volume
+city_xl-layout stand-in (bounce reorder "auto", or as --reorder says).  Prints the device time by kernel (top 25), the
 share of device time spent in the hand-written kernels, and the device
 busy share of the step's wall time.  The chrome trace goes to --trace
 (default out/torch_<step>_trace.json).
@@ -37,7 +39,8 @@ from voxtracer_torch.diff import train  # noqa: E402
 from voxtracer_torch.diff.volumetric import params_from_scene  # noqa: E402
 from voxtracer_torch.render.integrator import render_tiled  # noqa: E402
 from voxtracer_torch.render.reproject import render_reproject_frame  # noqa: E402
-from voxtracer_torch.scene.presets import glass_sphere_box, monu_like_path  # noqa: E402
+from voxtracer_torch.scene.presets import (city_xl_like_path, glass_sphere_box,  # noqa: E402
+                                           monu_like_path)
 
 OURS = ("traverse_kernel", "exit_kernel", "lookup_kernel", "lookup_bwd_kernel")
 
@@ -47,8 +50,10 @@ def main() -> None:
     ap.add_argument("--width", type=int)
     ap.add_argument("--height", type=int)
     ap.add_argument("--bounces", type=int)
-    ap.add_argument("--step", choices=("frame", "grad", "fused", "whitted", "reproject"),
+    ap.add_argument("--step", choices=("frame", "grad", "fused", "whitted", "reproject", "city"),
                     default="frame")
+    ap.add_argument("--reorder", choices=("auto", "always", "none"),
+                    help="RenderConfig.bounce_reorder (default: the preset's)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -58,10 +63,13 @@ def main() -> None:
         if args.bounces is not None:
             cfg = dataclasses.replace(cfg, max_bounces=args.bounces)
     else:
-        scene, cfg = monu_like_path(args.width or 1920, args.height or 1080,
-                                    bounces=4 if args.bounces is None else args.bounces)
+        preset = city_xl_like_path if args.step == "city" else monu_like_path
+        scene, cfg = preset(args.width or 1920, args.height or 1080,
+                            bounces=4 if args.bounces is None else args.bounces)
     if args.step == "reproject":
         cfg = dataclasses.replace(cfg, mode="reproject")
+    if args.reorder:
+        cfg = dataclasses.replace(cfg, bounce_reorder=args.reorder)
     scene = scene.to("cuda")
     key = make_key(0)
     history = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
@@ -72,7 +80,7 @@ def main() -> None:
 
     def run(i):
         nonlocal history
-        if args.step in ("frame", "whitted"):
+        if args.step in ("frame", "whitted", "city"):
             render_tiled(scene, cfg, fold_in(key, i), 1, 1)
         elif args.step == "reproject":
             _, history, _ = render_reproject_frame(scene, cfg, scene.camera, history,

@@ -176,6 +176,9 @@ def test_port_imports_neither_jax_nor_reference():
         import voxtracer_torch.diff.volumetric, voxtracer_torch.diff.train
         import voxtracer_torch.render.reproject, voxtracer_torch.core.sampling
         import voxtracer_torch.kernels.probes, voxtracer_torch.probe
+        import voxtracer_torch.scene.instances, voxtracer_torch.config
+        import voxtracer_torch.core.types, voxtracer_torch.kernels.traverse
+        import voxtracer_torch.kernels.lookup, voxtracer_torch.kernels.dda_occ
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "voxtracer")]
         assert not bad, bad

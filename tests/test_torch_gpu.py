@@ -9,7 +9,10 @@ atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
 and whitted and reproject images through the kernels with at most 0.1%
 of pixels off by more than 1e-3 from ones through the plain versions
-(whitted's per-pixel scatter-add runs in no fixed order).
+(whitted's per-pixel scatter-add runs in no fixed order).  K1 and K2 run
+at up to 256 volumes in one launch, held to the plain walk and to the
+page-by-page walk of the CPU path; K3 is held on the rays that march (of
+the others it returns zeros).
 Without a CUDA device every test skips: the
 kernels have no CPU mode.  This file imports neither JAX nor the JAX
 package, so it runs on a machine with the card and PyTorch alone:
@@ -23,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import plain_versions
+from chip_smoke import plain_traversal, plain_versions, same_exit
 from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
 from voxtracer_torch.diff import train, volumetric
 from voxtracer_torch.kernels import lookup, probes, traverse
@@ -141,12 +144,13 @@ def _edge_rays(rng, n, dev):
 
 
 @pytest.mark.parametrize("disabled", [False, True])
-@pytest.mark.parametrize("nvol", [1, 4, 8, 9, traverse.MAX_V])
+@pytest.mark.parametrize("nvol", [1, 4, 8, 9, 64, 65, 66, 111, 256])
 def test_traverse_kernel_volume_counts_and_edge_rays(cuda, nvol, disabled):
-    """K1 and K2 against the plain version at 1 to 64 volumes (index order
-    at every count; 8 and 9 straddle the count up to which the first port's
-    K1 kept its entry list in registers): with disabled volumes, inactive
-    rays, exact t ties between two volumes, zero-component and NaN
+    """K1 and K2 against the plain version at 1 to 256 volumes, in one
+    launch at every count (index order; 8 and 9 straddle the count up to
+    which the first port's K1 kept its entry list in registers, 64 and 65
+    the TPU kernels' and the earlier port's cap): with disabled volumes,
+    inactive rays, exact t ties between two volumes, zero-component and NaN
     directions, and t limits of inf (K2)."""
     rng = np.random.default_rng(nvol + 100 * disabled)
     vargs, occ, bsz, ven = _edge_scene(rng, nvol, cuda, disabled)
@@ -156,7 +160,7 @@ def test_traverse_kernel_volume_counts_and_edge_rays(cuda, nvol, disabled):
     tl = torch.from_numpy(np.where(rng.uniform(size=n) < 0.1, np.inf,
                                    rng.uniform(0.2, 4.0, n)).astype(np.float32)).to(cuda)
     for mode, limit in (("nearest", None), ("occluded", tl)):
-        p = traverse.traverse_plain(*vargs, o, d, limit, act, ven, occ, bsz, mode=mode)
+        p = plain_traversal((*vargs, o, d, limit, act, ven, occ, bsz), mode)
         k = traverse.traverse(*vargs, o, d, limit, act, ven, occ, bsz, mode=mode)
         torch.cuda.synchronize()
         if mode == "occluded":
@@ -169,18 +173,10 @@ def test_traverse_kernel_volume_counts_and_edge_rays(cuda, nvol, disabled):
         assert bool((k["vol"] == 0).any()) and not bool((k["vol"] == nvol - 1).any())
 
 
-def test_traverse_refuses_65_volumes_and_takes_none_defaults(cuda):
-    """65 volumes are refused; t_limit None (BIG) and vol_enabled None
-    (every volume) give what the explicit tensors give, in both modes."""
+def test_traverse_takes_none_defaults(cuda):
+    """t_limit None (BIG) and vol_enabled None (every volume) give what the
+    explicit tensors give, in both modes."""
     rng = np.random.default_rng(65)
-    g = np.full((1, 1, 1), 7, np.uint8)
-    big = build_volumes([VolumeSpec(position=(float(i), 0.0, 0.0), gridsize=1, grid=g)
-                         for i in range(traverse.MAX_V + 1)]).to(cuda)
-    o, d = _rays(rng, 128, cuda)
-    act = torch.ones(128, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError):
-        traverse.traverse(big.grids.reshape(-1), big.gridsize, big.inv, big.fwd, big.cube_min,
-                          o, d, None, act, None, big.occ, big.bricksize)
     vargs, occ, bsz = _scene(rng, 4, cuda)
     o, d = _rays(rng, 65536, cuda)
     act = torch.from_numpy(rng.uniform(size=65536) < 0.9).to(cuda)
@@ -224,11 +220,127 @@ def test_exit_kernel_matches_plain(cuda):
     vol = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(cuda)
     code = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(cuda)
     act = torch.from_numpy(rng.uniform(size=n) < 0.8).to(cuda)
+    vol[:64] = torch.tensor([-1, 3, 7, -2], dtype=torch.int32, device=cuda).repeat(16)  # no volume
     k = traverse.exit_march(*vargs, o, d, act, code, vol, occ, bsz)
     p = traverse.exit_march_plain(*vargs, o, d, act, code, vol, occ, bsz)
     torch.cuda.synchronize()
     assert int(k["in_vol"].sum()) > 0
-    _same(k, p, ("in_vol", "cell"))
+    same_exit(k, p, act, "K3")
+
+
+def test_exit_kernel_on_the_captured_path_calls(cuda):
+    """K3 on every exit call of a whitted 256^2 glassbox frame and of the
+    media 128^2 path and reproject frames, as the renderers pass them."""
+    from chip_smoke import captured_traversals
+
+    calls = []
+    with captured_traversals(calls):
+        scene, cfg = glass_sphere_box(256, 256)
+        integrator.render_tiled(scene.to(cuda), cfg, make_key(0), 1, 1)
+        scene, cfg = media_path(128, 128)
+        scene = scene.to(cuda)
+        integrator.render_tiled(scene, cfg, make_key(0), 1, 1)
+        rcfg = dataclasses.replace(cfg, mode="reproject")
+        hist = torch.zeros((128, 128, 3), device=cuda)
+        for i in range(2):
+            _, hist, _ = reproject.render_reproject_frame(scene, rcfg, scene.camera, hist,
+                                                          fold_in(make_key(0), i))
+    exits = [args for mode, args in calls if mode == "exit"]
+    assert len(exits) >= 6
+    for args in exits:
+        k = traverse.exit_march(*args)
+        p = traverse.exit_march_plain(*args)
+        torch.cuda.synchronize()
+        assert bool(args[7].any())
+        same_exit(k, p, args[7], "K3")
+
+
+def _city(cuda, gridsize=16):
+    from voxtracer_torch.scene.presets import city_xl_like_path
+
+    scene, cfg = city_xl_like_path(256, 128, gridsize=gridsize)
+    return scene.to(cuda), cfg
+
+
+def test_111_volume_frame_calls_match_plain_and_the_paged_walk(cuda):
+    """Every K1 and K2 call of a 256 x 128 frame of the 111-volume city
+    layout (16^3 grids): one launch over all volumes against the plain walk
+    in ray chunks, and against the page-by-page walk the CPU path takes
+    (a launch a page here), bit for bit."""
+    from chip_smoke import captured_traversals
+
+    scene, cfg = _city(cuda)
+    assert scene.volumes.n == 111 and integrator._pages(scene, scene.volumes.inv) is None
+    calls = []
+    with captured_traversals(calls):
+        integrator.render_tiled(scene, cfg, make_key(0), 1, 1)
+    modes = [m for m, _ in calls]
+    assert modes.count("nearest") == 5 and modes.count("occluded") == 5
+    for mode, args in calls:
+        k = traverse.traverse(*args, mode=mode)
+        p = plain_traversal(args, mode)
+        g = integrator._paged_traverse(scene, args[5], args[6], args[7], args[8], None, mode)
+        torch.cuda.synchronize()
+        if mode == "occluded":
+            assert torch.equal(k["hit"], p["hit"]) and torch.equal(k["hit"], g["hit"])
+        else:
+            _same(k, p, ("hit", "vol", "cell"))
+            for f in k:
+                assert torch.equal(k[f], g[f]), f
+
+
+def test_cross_page_tie_on_the_card(cuda):
+    """Two copies of one volume on both sides of a page boundary: the one
+    launch and the paged walk both give every tie to the lower volume."""
+    rng = np.random.default_rng(31)
+    specs = []
+    for i in range(70):
+        g = np.full((16,) * 3, MAT_NONE, np.uint8)
+        lo = rng.integers(0, 10, 3)
+        g[lo[0]:lo[0] + 5, lo[1]:lo[1] + 5, lo[2]:lo[2] + 5] = int(rng.choice([1, 2, 7]))
+        specs.append(VolumeSpec(position=tuple(rng.uniform(-1.5, 1.5, 3)), gridsize=16, grid=g,
+                                rotation=tuple(rng.uniform(-0.5, 0.5, 3)),
+                                scale=tuple(rng.uniform(0.6, 1.2, 3))))
+    specs[24] = specs[23]  # build order is kept: pages cut at 24 below
+    vols = build_volumes(specs).with_pages([(24, 48), (0, 24), (48, 70)]).to(cuda)
+    scene = dataclasses.replace(glass_sphere_box(8, 8)[0].to(cuda), volumes=vols)
+    n = 32768
+    o, d = _rays(rng, n, cuda)
+    mid = vols.fwd[23] @ torch.cat([vols.cube_min[23] + 0.5, torch.ones(1, device=cuda)])
+    aim = mid[:3] + (torch.rand((n // 2, 3), device=cuda) - 0.5) * 0.6 - o[:n // 2]
+    d[:n // 2] = aim / aim.norm(dim=1, keepdim=True)
+    act = torch.ones(n, dtype=torch.bool, device=cuda)
+    k = traverse.traverse(*integrator._vol_args(scene), o, d, None, act, None, vols.occ,
+                          vols.bricksize)
+    g = integrator._paged_traverse(scene, o, d, None, act, None, "nearest")
+    p = plain_traversal((*integrator._vol_args(scene), o, d, None, act, None, vols.occ,
+                         vols.bricksize), "nearest")
+    torch.cuda.synchronize()
+    _same(k, p, ("hit", "vol", "cell"))
+    for f in k:
+        assert torch.equal(k[f], g[f]), f
+    assert int((k["vol"] == 23).sum()) > 100 and not bool((k["vol"] == 24).any())
+
+
+def test_111_volume_frame_kernels_match_plain(cuda):
+    """A 128 x 64 frame of the city layout, 4 bounces, kernels against
+    plain versions: as the preset renders it (no reorder below "auto"'s ray
+    count) to the image gate; with the reorder forced on to at most 1% of
+    pixels, since one ulp in a bounce origin can move a ray across a sort
+    cell and reassign the samples of the lanes in between."""
+    scene, cfg = _city(cuda)
+    cfg = dataclasses.replace(cfg, width=128, height=64)
+    for reorder, gate in (("auto", 1e-3), ("always", 1e-2)):
+        c = dataclasses.replace(cfg, bounce_reorder=reorder)
+        before = dict(traverse.launches, **lookup.launches)
+        a = integrator.render_tiled(scene, c, make_key(0), 1, 1)
+        after = dict(traverse.launches, **lookup.launches)
+        for name in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+            assert after[name] > before[name], name
+        with plain_versions():
+            b = integrator.render_tiled(scene, c, make_key(0), 1, 1)
+        assert bool(torch.isfinite(a).all()) and float(a.mean()) > 0.02
+        assert float(((a - b).abs().amax(-1) > 1e-3).float().mean()) <= gate, reorder
 
 
 def test_lookup_kernel_matches_plain(cuda):
@@ -353,6 +465,44 @@ def test_lookup_bwd_holds_one_signed_rows_at_the_albedo_shape(cuda):
                            )[0] == "shared"
     idx = _ids(rng, n, k, "few", 0, cuda)
     ct = torch.from_numpy(rng.uniform(0.5, 1.5, (n, 3)).astype(np.float32)).to(cuda)
+    _hold_bwd(ct, idx, k)
+
+
+@pytest.mark.parametrize("bricks", [1, 4, 37])
+def test_lookup_bwd_holds_one_signed_concentrated_rows_at_the_brick_shape(cuda, bricks):
+    """2,918,400 brick-sigma rows ([2048, 1]) of one sign on 1, 4 or 37
+    bricks: tens of thousands of rows an entry, whatever accumulator the
+    plan picks for the shape."""
+    rng = np.random.default_rng(60 + bricks)
+    n, k = 2_918_400, 2048
+    ids = rng.choice(rng.choice(k, bricks, replace=False), n)
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    for lo, hi in ((0.5, 1.5), (1e-3, 1.0)):
+        ct = torch.from_numpy(rng.uniform(lo, hi, (n, 1)).astype(np.float32)).to(cuda)
+        _hold_bwd(ct, idx, k)
+        _hold_bwd(-ct, idx, k)
+
+
+def test_lookup_bwd_holds_one_signed_rows_at_the_gradient_s_brick_ids(cuda):
+    """The largest brick-sigma cotangent of one 1080p binned gradient, its
+    ids as the march makes them, its zero rows replaced by one-signed
+    values (the march's own are 98% zeros)."""
+    from chip_smoke import captured_lookups
+
+    scene, cfg = monu_like_path(1920, 1080, bounces=4)
+    scene = scene.to(cuda)
+    params = volumetric.params_from_scene(scene)
+    plan = train.prepare_bins(scene, cfg, torch.zeros((1080, 1920, 3), device=cuda),
+                              bin_steps=(2, 10), edges=(4.0,), tiles=2, span_steps=1)
+    calls = {}
+    with captured_lookups(calls):
+        train.binned_grads(params, scene, plan)
+    k = scene.volumes.n * scene.volumes.occ.shape[2]
+    ct, idx, kk = calls[("bwd", k, 1)]
+    assert kk == k == 2048 and idx.shape[0] > 100_000
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    fill = torch.rand(ct.shape, generator=gen, device=cuda) + 0.5
+    _hold_bwd(torch.where(ct == 0, fill, ct.abs()), idx, k)
     _hold_bwd(ct, idx, k)
 
 

@@ -86,6 +86,10 @@ def _flatten(scene):
         out[part] = {f.name: np.asarray(getattr(rec, f.name))
                      for f in dataclasses.fields(rec)
                      if isinstance(getattr(rec, f.name), (np.ndarray, np.generic))}
+    if scene.volumes.pages is not None:  # a paged scene: each page's offset and arrays
+        out["volumes"]["pages"] = [
+            dict(vol_off=p.vol_off, **{f: np.asarray(getattr(p, f)) for f in ("gridsize", "inv")})
+            for p in scene.volumes.pages]
     return out
 
 
@@ -121,8 +125,11 @@ def test_scene_from_numpy_matches_port_builders(scenes):
     for part in ("volumes", "materials", "lights", "sky", "camera"):
         a, b = getattr(mine, part), getattr(carried, part)
         for f in dataclasses.fields(a):
-            np.testing.assert_array_equal(getattr(a, f.name).numpy(),
-                                          getattr(b, f.name).numpy(), err_msg=f.name)
+            if isinstance(getattr(a, f.name), torch.Tensor):
+                np.testing.assert_array_equal(getattr(a, f.name).numpy(),
+                                              getattr(b, f.name).numpy(), err_msg=f.name)
+            else:  # an unpaged scene: pages None, vol_off 0
+                assert getattr(a, f.name) == getattr(b, f.name), f.name
 
 
 @pytest.mark.parametrize("name", ["monu_like", "media"])

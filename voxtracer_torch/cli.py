@@ -4,6 +4,7 @@
         --width 1920 --height 1080 --bounces 4 --output out.png
     python -m voxtracer_torch.cli render --preset glassbox --width 512   # whitted
     python -m voxtracer_torch.cli render --preset monu_like --mode reproject --frames 4
+    python -m voxtracer_torch.cli render --preset city_xl_like     # 111 volumes, 1080p
 
 The scene lives on ``--device`` (default ``cuda``); CUDA tensors run the
 hand-written kernels, so the default needs a GPU.  Path, primary and

@@ -31,3 +31,16 @@ class RenderConfig:
     # threads trace neighbouring pixels; "scanline": row-major.  Tile order
     # falls back to scanline when width % 128 != 0.
     ray_order: str = "tile"
+    # path mode: sort the wavefront by (terminated, morton code of the
+    # origin, direction octant) before bounces >= 1, so neighbouring
+    # threads trace neighbouring rays again after a diffuse bounce.
+    # "auto": on paged scenes (more than 64 volumes, scene/instances
+    # .paginate_volumes) with at least compact_min rays; "always"; "none".
+    # Dispatch order only: each lane's estimator is unchanged, but the
+    # counter-hash streams are per lane, so a reordered frame draws other
+    # samples than an unordered one.
+    bounce_reorder: str = "auto"
+    # re-sort before every k-th bounce from bounce 1 on (1 = every bounce)
+    bounce_reorder_period: int = 2
+    # the fewest rays "auto" reorders
+    compact_min: int = 65536

@@ -117,7 +117,14 @@ class VoxVolumes(_Record):
     Object space is the unit cube [cube_min, cube_min + 1]; ``inv`` takes
     rays world -> object, ``fwd`` normals object -> world.  ``occ`` holds
     one 512-bit row (16 int32 words, LSB first, bit (fx*8+fy)*8+fz) per
-    8^3 brick for each of the three OCC_* predicate planes."""
+    8^3 brick for each of the three OCC_* predicate planes.
+
+    ``pages`` (scene/instances.paginate_volumes) splits a large set into
+    child records of a few volumes each, every one a slice
+    ``[vol_off, vol_off + n)`` of this record's arrays, in the order a
+    paged traversal walks them; ``to(device)`` cuts the pages out of the
+    moved arrays again, so they share the parent's memory (``occ`` apart:
+    its slice is not contiguous)."""
 
     grids: torch.Tensor      # [V, G, G, G] i32 material ids
     gridsize: torch.Tensor   # [V] i32 logical size (1..G)
@@ -127,10 +134,30 @@ class VoxVolumes(_Record):
     bricks: torch.Tensor     # [V, M, M, M] i32 uniform value or -1
     bricksize: torch.Tensor  # [V] i32 ceil(gridsize / 8)
     occ: torch.Tensor        # [3, V, M^3, 16] i32
+    pages: tuple | None = None  # child VoxVolumes in walk order, or None
+    vol_off: int = 0         # a page's first volume in its parent
 
     @property
     def n(self) -> int:
         return self.grids.shape[0]
+
+    def page(self, lo: int, hi: int) -> "VoxVolumes":
+        """Volumes [lo, hi) as a page: views of this record's arrays and a
+        contiguous copy of their occupancy rows."""
+        return VoxVolumes(
+            grids=self.grids[lo:hi], gridsize=self.gridsize[lo:hi], inv=self.inv[lo:hi],
+            fwd=self.fwd[lo:hi], cube_min=self.cube_min[lo:hi], bricks=self.bricks[lo:hi],
+            bricksize=self.bricksize[lo:hi], occ=self.occ[:, lo:hi].contiguous(), vol_off=lo)
+
+    def with_pages(self, bounds) -> "VoxVolumes":
+        """This record with pages cut at bounds, (lo, hi) pairs in walk order."""
+        return replace(self, pages=tuple(self.page(lo, hi) for lo, hi in bounds))
+
+    def to(self, device):
+        moved = _Record.to(replace(self, pages=None), device)
+        if self.pages is None:
+            return moved
+        return moved.with_pages([(p.vol_off, p.vol_off + p.n) for p in self.pages])
 
     @property
     def pad_size(self) -> int:

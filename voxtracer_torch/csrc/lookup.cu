@@ -175,18 +175,21 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ ct, long lon
   }
 }
 
-// Add a group's sum: into the warp's own copy in shared memory (PRIV; the
-// leaders of one step hold distinct ids, so no atomic is needed), else
-// straight into the output with a no-return global reduction.
+// Add a group's sum to entry j: into the warp's own copy in shared memory
+// (PRIV; the leaders of one step hold distinct ids, so no atomic is
+// needed), else into the scratch of doubles with a no-return global
+// reduction.
 template <bool PRIV>
-__device__ __forceinline__ void add(float* p, float v) {
-  if constexpr (PRIV) *p += v;
-  else atomicAdd(p, v);
+__device__ __forceinline__ void add(float* priv, double* scratch, int j, float v) {
+  if constexpr (PRIV) priv[j] += v;
+  else atomicAdd(scratch + j, (double)v);
 }
 
 // PRIV: each warp keeps its own K x C accumulator in shared memory; at the
 // end a block sums its warps' copies and adds each non-zero sum to `out`
-// with one global add.  Otherwise the group sums go straight into `out`.
+// with one global add.  Otherwise the group sums go into `scratch` (K x C
+// doubles, then a counter of finished blocks, all zeroed by the entry
+// point), and the last block to finish writes them to `out` as floats.
 // For C > 0 a lane takes 4 consecutive rows a step (16-byte loads of ids
 // and cotangents where aligned), drops rows whose cotangent is zero (they
 // add nothing), folds each row into the first of its rows with the same
@@ -196,11 +199,11 @@ __device__ __forceinline__ void add(float* p, float v) {
 template <int C, bool PRIV>
 __global__ void __launch_bounds__(kThreads)
 lookup_bwd_kernel(const float* __restrict__ ct, int c_rt, const int* __restrict__ idx,
-                  long long n, int k, float* __restrict__ out) {
+                  long long n, int k, float* __restrict__ out, double* __restrict__ scratch) {
   const int c = C > 0 ? C : c_rt;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   extern __shared__ float s_acc[];
-  float* acc = PRIV ? s_acc + warp * k * c : out;
+  float* acc = PRIV ? s_acc + warp * k * c : nullptr;
   if constexpr (PRIV) {
     for (int j = threadIdx.x; j < kWarps * k * c; j += kThreads) s_acc[j] = 0.0f;
     __syncthreads();
@@ -259,7 +262,7 @@ lookup_bwd_kernel(const float* __restrict__ ct, int c_rt, const int* __restrict_
         reduce_peers<C>(peers, lane, x[q]);
         if (key[q] >= 0 && (__ffs(peers) - 1) == lane) {
 #pragma unroll
-          for (int j = 0; j < C; ++j) add<PRIV>(acc + key[q] * C + j, x[q][j]);
+          for (int j = 0; j < C; ++j) add<PRIV>(acc, scratch, key[q] * C + j, x[q][j]);
         }
         __syncwarp();
       }
@@ -275,7 +278,7 @@ lookup_bwd_kernel(const float* __restrict__ ct, int c_rt, const int* __restrict_
       for (int j = 0; j < c; ++j) {
         float x[1] = {live ? __ldg(ct + r * c + j) : 0.0f};
         reduce_peers<1>(peers, lane, x);
-        if (live && (__ffs(peers) - 1) == lane) add<PRIV>(acc + key * c + j, x[0]);
+        if (live && (__ffs(peers) - 1) == lane) add<PRIV>(acc, scratch, key * c + j, x[0]);
         __syncwarp();
       }
     }
@@ -286,6 +289,20 @@ lookup_bwd_kernel(const float* __restrict__ ct, int c_rt, const int* __restrict_
       float v = 0.0f;
       for (int w = 0; w < kWarps; ++w) v += s_acc[w * k * c + j];
       if (v != 0.0f) atomicAdd(out + j, v);  // NaN != 0 is added too
+    }
+  } else {
+    // the last block to get here finds every block's sums in the scratch
+    __shared__ bool last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned* done = reinterpret_cast<unsigned*>(scratch + (size_t)k * c);
+      last = atomicAdd(done, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      for (int j = threadIdx.x; j < k * c; j += kThreads) out[j] = (float)__ldcg(scratch + j);
     }
   }
 }
@@ -299,11 +316,11 @@ cudaError_t launch_fwd(const float* tab, int k, int c, const int* idx, long long
 
 template <int C>
 cudaError_t launch_bwd(bool priv, const float* ct, int c, const int* idx, long long n, int k,
-                       float* out, int blocks, size_t smem, cudaStream_t s) {
+                       float* out, double* scratch, int blocks, size_t smem, cudaStream_t s) {
   if (priv)
-    lookup_bwd_kernel<C, true><<<blocks, kThreads, smem, s>>>(ct, c, idx, n, k, out);
+    lookup_bwd_kernel<C, true><<<blocks, kThreads, smem, s>>>(ct, c, idx, n, k, out, scratch);
   else
-    lookup_bwd_kernel<C, false><<<blocks, kThreads, 0, s>>>(ct, c, idx, n, k, out);
+    lookup_bwd_kernel<C, false><<<blocks, kThreads, 0, s>>>(ct, c, idx, n, k, out, scratch);
   return cudaGetLastError();
 }
 
@@ -349,19 +366,26 @@ extern "C" int vt_lookup_rows(const float* tab, int k, int c, const int* idx, lo
   }
 }
 
-// out [k, c] = the table cotangent of ct [n, c] at clip(idx [n]), zeroed
-// here first; `shared_acc` picks the warp-private accumulators (8 copies
-// of the table a block).
+// out [k, c] = the table cotangent of ct [n, c] at clip(idx [n]).  With
+// `scratch` null the warp-private accumulators sum (8 copies of the table
+// a block) into `out`, zeroed here first; else the group sums go into
+// `scratch`, k * c + 1 doubles (8-byte aligned), zeroed here first, and
+// the last block rounds them to `out`.
 extern "C" int vt_lookup_rows_bwd(const float* ct, long long n, int c, const int* idx, int k,
-                                  float* out, int shared_acc, int blocks, cudaStream_t stream) {
-  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)k * c, stream);
+                                  float* out, double* scratch, int blocks,
+                                  cudaStream_t stream) {
+  const bool priv = scratch == nullptr;
+  cudaError_t e = priv || n == 0
+      ? cudaMemsetAsync(out, 0, sizeof(float) * (size_t)k * c, stream)
+      : cudaMemsetAsync(scratch, 0, sizeof(double) * ((size_t)k * c + 1), stream);
   if (e != cudaSuccess || n == 0) return (int)e;
-  const size_t smem = shared_acc ? sizeof(float) * kWarps * (size_t)k * c : 0;
+  const size_t smem = priv ? sizeof(float) * kWarps * (size_t)k * c : 0;
   switch (c) {
-    case 1: return (int)launch_bwd<1>(shared_acc, ct, c, idx, n, k, out, blocks, smem, stream);
-    case 3: return (int)launch_bwd<3>(shared_acc, ct, c, idx, n, k, out, blocks, smem, stream);
-    case 5: return (int)launch_bwd<5>(shared_acc, ct, c, idx, n, k, out, blocks, smem, stream);
-    case 6: return (int)launch_bwd<6>(shared_acc, ct, c, idx, n, k, out, blocks, smem, stream);
-    default: return (int)launch_bwd<0>(shared_acc, ct, c, idx, n, k, out, blocks, smem, stream);
+    case 1: return (int)launch_bwd<1>(priv, ct, c, idx, n, k, out, scratch, blocks, smem, stream);
+    case 3: return (int)launch_bwd<3>(priv, ct, c, idx, n, k, out, scratch, blocks, smem, stream);
+    case 5: return (int)launch_bwd<5>(priv, ct, c, idx, n, k, out, scratch, blocks, smem, stream);
+    case 6: return (int)launch_bwd<6>(priv, ct, c, idx, n, k, out, scratch, blocks, smem, stream);
+    default:
+      return (int)launch_bwd<0>(priv, ct, c, idx, n, k, out, scratch, blocks, smem, stream);
   }
 }

@@ -31,7 +31,16 @@
 // the best hit so far (or t_limit) is skipped, and each walk stops just
 // above the best hit so far, so the nearest hit and the earliest-volume
 // tie-break come out as in (entry t, volume) order; K2 stops at its first
-// hit.  Everything a thread keeps stays in registers (no stack frame).
+// hit.  Everything a thread keeps stays in registers (no stack frame), at
+// any volume count: the one limit is that a cell's index in the stacked
+// grids, V * G^3, fits 32 bits (8,191 volumes of 64^3).  A scene past the
+// TPU kernels' 64 volumes takes one launch over all of them; a launch a
+// page (the TPU's way) was timed against it and lost (PERF.md).
+//
+// K3 marches a ray through the one volume it names.  A ray that is not
+// active, or names no volume, returns at once with in_vol false and
+// zeros: no caller reads more of such a lane, and on the path's calls
+// most lanes are such.  What is left of a small call is the launch.
 
 // Precision: build with --fmad=false and without --use_fast_math, so no
 // multiply-add is contracted and division and square root are IEEE.  Each
@@ -47,7 +56,6 @@ namespace {
 constexpr float BIG = 1e34f;
 constexpr int BRICK = 8;
 constexpr int INNER = 8;
-constexpr int MAX_V = 64;
 constexpr int THREADS = 128;
 constexpr int MAT_NONE = 255;
 constexpr int MODE_NEAREST = 0;
@@ -188,7 +196,7 @@ __device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
                                            const float* m, int side, int mside,
                                            const unsigned* bm, int bit0,
                                            const int* __restrict__ rows,
-                                           float tl, bool ray_active) {
+                                           float tl) {
   const bool is_exit = MODE == MODE_EXIT;
   const float bx = m[VT_MIN], by = m[VT_MIN + 1], bz = m[VT_MIN + 2];
   const float gs_f = m[VT_GS];
@@ -213,7 +221,7 @@ __device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
   res.cell = 0;
   res.t_out = valid ? t0 : 0.0f;
 
-  bool active = ray_active && valid && (is_exit || (t0 < tl));
+  bool active = valid && (is_exit || (t0 < tl));
   float t = t0;
   bool level = false;
   int px = fx.p, py = fy.p, pz = fz.p;
@@ -402,7 +410,7 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
       // tie-break; K2's best_t stays BIG, so its limit is t_limit
       const float limit = nmin(tl, __int_as_float(__float_as_int(best_t) + 1));
       WalkResult w = walk<MODE>(r, t0, m, tb.side, tb.mside, tb.bm, v * m3,
-                                tb.occ + (size_t)v * m3 * 16, limit, true);
+                                tb.occ + (size_t)v * m3 * 16, limit);
       if (w.hit && (MODE == MODE_OCCLUDED || !best_hit || w.t_hit < best_t ||
                     (w.t_hit == best_t && v < best_vol))) {
         best_hit = true;
@@ -432,9 +440,10 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
   reinterpret_cast<uint8_t*>(of + 6 * (size_t)n)[i] = best_hit ? 1 : 0;
 }
 
-// K3: march each ray through its own volume until it leaves the medium
-// (glass plane 1 or smoke plane 2) or the grid; tables from global memory.
-// out: t, cell, nx, ny, nz ([n] each), then the in-volume bytes.
+// K3: march each active ray through its own volume until it leaves the
+// medium (glass plane 1 or smoke plane 2) or the grid; tables from global
+// memory.  out: t, cell, nx, ny, nz ([n] each), then the in-volume bytes;
+// an inactive ray's are 0, MAT_NONE, 0, 0, 0 and false.
 __global__ void __launch_bounds__(THREADS)
 exit_kernel(Tables tb, const float* __restrict__ o, const float* __restrict__ d,
             const uint8_t* __restrict__ active,
@@ -442,7 +451,7 @@ exit_kernel(Tables tb, const float* __restrict__ o, const float* __restrict__ d,
             const int* __restrict__ vol_match, int n, void* __restrict__ out) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const int v = vol_match[i];
+  const int v = active[i] != 0 ? vol_match[i] : -1;
   bool in_vol = false;
   float t = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   int cell = MAT_NONE;
@@ -454,7 +463,7 @@ exit_kernel(Tables tb, const float* __restrict__ o, const float* __restrict__ d,
                        d[3 * i + 1], d[3 * i + 2]);
     WalkResult w = walk<MODE_EXIT>(
         r, vol_entry(r, m), m, tb.side, tb.mside, tb.bm + (size_t)plane * tb.words,
-        v * m3, tb.occ + ((size_t)plane * tb.v + v) * m3 * 16, BIG, active[i] != 0);
+        v * m3, tb.occ + ((size_t)plane * tb.v + v) * m3 * 16, BIG);
     in_vol = w.hit;
     t = w.t_out;
     if (in_vol) {
@@ -472,7 +481,16 @@ exit_kernel(Tables tb, const float* __restrict__ o, const float* __restrict__ d,
   reinterpret_cast<uint8_t*>(of + 5 * (size_t)n)[i] = in_vol ? 1 : 0;
 }
 
+// A launch of K1-K3's grid for n rays that does nothing: what a launch
+// costs whatever the kernel does (a measuring aid).
+__global__ void __launch_bounds__(THREADS) floor_kernel() {}
+
 inline unsigned blocks_for(int n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+
+// A cell's index in the stacked grids, v * side^3 + cell, must fit an int.
+inline bool fits(int v, int side) {
+  return v >= 1 && side >= 1 && (long long)v * side * side * side <= 2147483647LL;
+}
 
 }  // namespace
 
@@ -484,7 +502,7 @@ int vt_traverse(int mode, const float* o, const float* d, const float* t_limit,
                 const unsigned* bm, const int* occ, const int* grids, const float* wbox,
                 int n, int v, int side, int mside, int words, void* out,
                 cudaStream_t stream) {
-  if (v < 1 || v > MAX_V || (mode != MODE_NEAREST && mode != MODE_OCCLUDED))
+  if (!fits(v, side) || (mode != MODE_NEAREST && mode != MODE_OCCLUDED))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Tables tb{vtab, bm, occ, grids, wbox, v, side, mside, words};
@@ -499,10 +517,17 @@ int vt_exit_march(const float* o, const float* d, const uint8_t* active,
                   const unsigned* bm, const int* occ, const int* grids,
                   const float* wbox, int n, int v, int side, int mside, int words,
                   void* out, cudaStream_t stream) {
+  if (!fits(v, side)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Tables tb{vtab, bm, occ, grids, wbox, v, side, mside, words};
   exit_kernel<<<blocks_for(n), THREADS, 0, stream>>>(tb, o, d, active, mode_code,
                                                      vol_match, n, out);
+  return (int)cudaGetLastError();
+}
+
+int vt_launch_floor(int n, cudaStream_t stream) {
+  if (n == 0) return 0;
+  floor_kernel<<<blocks_for(n), THREADS, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -81,9 +81,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "vt_traverse": [_I] + [_P] * 10 + [_I] * 5 + [_P, _P],
     "vt_exit_march": [_P] * 10 + [_I] * 5 + [_P, _P],
+    "vt_launch_floor": [_I, _P],
     "vt_lookup_init": [_I],
     "vt_lookup_rows": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _P],
-    "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _I, _I, _P],
+    "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _P, _I, _P],
     "vt_lane_gather": [_P, _P, _I, _I, _P, _P],
     "vt_chain_gather": [_P, _P, _I, _I, _P, _P],
     "vt_alu_loop": [_P, _P, ctypes.c_longlong, _I, _P, _P],

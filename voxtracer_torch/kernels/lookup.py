@@ -55,8 +55,9 @@ def bwd_plan(n: int, k: int, c: int, sms: int) -> tuple[str, int]:
     into a [k, c] table -> ("shared" or "direct", blocks).  Each warp
     privatises a k x c copy only where a block's 8 copies fit
     PRIV_MAX_BYTES and each block's share of the rows is at least k (many
-    rows per entry: the albedo rows); otherwise the group sums go straight
-    to the output (few rows per entry: the brick-sigma rows)."""
+    rows per entry: the albedo rows); otherwise the group sums go to one
+    accumulator of doubles in device memory (few rows per entry as a rule:
+    the brick-sigma rows; doubles, because the shapes cannot promise it)."""
     blocks = max(1, min(-(-n // (SLAB_ROWS * THREADS // 32)), sms * BWD_BLOCKS_PER_SM))
     shared = 4 * k * c * THREADS // 32 <= PRIV_MAX_BYTES and n >= k * blocks
     return ("shared" if shared else "direct"), blocks
@@ -109,7 +110,8 @@ def lookup_rows_bwd_plain(ct, idx, k):
 def lookup_rows_bwd(ct, idx, k, acc=None):
     """The table cotangent of ``lookup_rows``: ct [N, C] f32, idx [N] i32
     -> [K, C] f32, summed with atomics (no fixed order).  `acc` forces the
-    accumulator ("shared" or "direct"; default: ``bwd_plan``'s)."""
+    accumulator ("shared": warp copies in f32; "direct": one global one in
+    f64, rounded once; default: ``bwd_plan``'s)."""
     if not ct.is_cuda:
         if ct.is_cpu:
             return lookup_rows_bwd_plain(ct, idx, k)
@@ -132,8 +134,13 @@ def lookup_rows_bwd(ct, idx, k, acc=None):
         raise ValueError(f"{THREADS // 32} copies of a {k}x{c} accumulator need more than the "
                          f"device's {limit} bytes of shared memory a block")
     out = torch.empty((k, c), dtype=torch.float32, device=ct.device)
+    # direct: the kernel sums into k * c doubles (and counts its finished
+    # blocks in one more) and rounds them to `out` at its end
+    scratch = None if acc == "shared" else torch.empty(k * c + 1, dtype=torch.float64,
+                                                       device=ct.device)
     build.check(build.lib().vt_lookup_rows_bwd(
-        ct.data_ptr(), n, c, idx.data_ptr(), k, out.data_ptr(), acc == "shared", blocks,
+        ct.data_ptr(), n, c, idx.data_ptr(), k, out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), blocks,
         torch._C._cuda_getCurrentRawStream(index)), "lookup_rows_bwd")
     launches["lookup_rows_bwd"] += 1
     return out

@@ -14,6 +14,12 @@ in a small cache keyed by the source tensors' ``data_ptr()`` and
 ``_version``, so an in-place edit of any of them rebuilds the tables and
 a call checks only its rays.  The cache holds its sources by weak
 reference: an entry goes when any of them is freed.
+
+The kernels take any number of volumes whose stacked grids' cells can be
+indexed in 32 bits (V * G^3 < 2^31: 8,191 volumes of 64^3).  ``exit_march``
+marches the rays whose ``ray_active`` is set; of any other ray it returns
+in_vol False, t 0, cell MAT_NONE and a zero normal (the plain version
+returns such a ray's entry t; no caller reads it).
 """
 
 from __future__ import annotations
@@ -27,9 +33,8 @@ from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 
-MAX_V = 64    # volumes the kernels take (csrc/traverse.cu MAX_V)
 VT = 26       # floats per volume in the constants table
-CACHE_SIZE = 8  # volume sets whose tables are kept
+CACHE_SIZE = 16  # volume sets whose tables are kept (a paged scene's 5 pages and itself)
 
 launches = {"traverse_nearest": 0, "traverse_occluded": 0, "exit_march": 0}
 
@@ -121,8 +126,9 @@ def tables(grids_flat, gridsize, inv, fwd, cube_min, occ, bricksize):
         return hit[0]
     index = occ.get_device()  # -1 on the CPU
     v = gridsize.shape[0]
-    if not 1 <= v <= MAX_V:
-        raise ValueError(f"the traversal kernels take 1..{MAX_V} volumes, got {v}")
+    if v < 1 or grids_flat.shape[0] >= 2 ** 31:
+        raise ValueError(f"the traversal kernels index the cells of all volumes in 32 bits: "
+                         f"{v} volumes of {grids_flat.shape[0]} cells in all")
     g3 = grids_flat.shape[0] // v
     side = round(g3 ** (1.0 / 3.0))
     m3 = occ.shape[2]
@@ -263,5 +269,15 @@ def exit_march(grids_flat, gridsize, inv, fwd, cube_min, o, d, ray_active,
         vol_match.data_ptr(), *tb.ptrs, n, tb.v, tb.side, tb.mside, tb.words, buf.data_ptr(),
         torch._C._cuda_getCurrentRawStream(index)), "exit_march")
     launches["exit_march"] += 1
-    return dict(in_vol=ib.view(torch.bool)[:n], t=t, cell=cell.view(torch.int32), nx=nx,
-                ny=ny, nz=nz)
+    in_vol = ib.view(torch.bool)
+    return dict(in_vol=in_vol[:n] if n % 4 else in_vol, t=t, cell=cell.view(torch.int32),
+                nx=nx, ny=ny, nz=nz)
+
+
+def launch_floor(n, device):
+    """Launch K1-K3's grid for n rays with a kernel that does nothing, on
+    the current stream of CUDA `device`: what a launch of that grid costs
+    (a measuring aid; no path calls it)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    build.check(build.lib().vt_launch_floor(n, torch._C._cuda_getCurrentRawStream(index)),
+                "launch_floor")

@@ -30,6 +30,7 @@ from voxtracer_torch.core.types import (EMISSIVE, GLASS, MAT_NONE, METAL_HIGH,
                                         METAL_LOW, SMOKE_LOW_DENSITY,
                                         SMOKE_PLAYER, Scene)
 from voxtracer_torch.kernels.dda import EXIT_GLASS, EXIT_SMOKE
+from voxtracer_torch.kernels.dda_occ import entry_t
 from voxtracer_torch.kernels.lookup import lookup_rows
 from voxtracer_torch.kernels.primitives import (spheres_nearest,
                                                 spheres_occluded,
@@ -135,22 +136,106 @@ def chemisphere_dir(n, g):
 # Scene intersection
 # --------------------------------------------------------------------------
 
-def _vol_args(scene: Scene):
-    v = scene.volumes
+def _vol_args(scene: Scene, vols=None):
+    v = scene.volumes if vols is None else vols
     return (v.grids.reshape(-1), v.gridsize, v.inv, v.fwd, v.cube_min)
+
+
+def _is_paged(scene: Scene) -> bool:
+    """A paginated scene of more than 64 volumes (the JAX package pages
+    its TPU kernels from there on)."""
+    return scene.volumes.pages is not None and scene.volumes.n > 64
+
+
+def _pages(scene: Scene, rays):
+    """The pages to traverse one by one, or None for one traversal over
+    all volumes.  CPU rays walk a paged scene page by page, as the JAX
+    package walks it where its TPU kernels run.  On the card one launch
+    takes all volumes: the kernels keep no per-volume state, and a launch
+    a page with this entry pass in plain torch was timed at nine times the
+    111-volume 1080p frame (PERF.md)."""
+    return scene.volumes.pages if _is_paged(scene) and rays.is_cpu else None
+
+
+# How far above the best t a later page's walk limit sits, relative.  The
+# float just above it (the JAX package's limit) is not enough: the walk
+# ends a ray whose fine crossing t reaches the limit, and the fine and the
+# macro DDA round the crossing of one plane a few ulps apart, so a tying
+# hit entered by a macro step can lie one fine crossing beyond that limit
+# and the tie would go to the page walked first.  84 ulps cover the at most
+# 8 + 8 additions that separate the two.  A hit returned above the best t
+# loses the merge, so the slack changes no result.
+TIE_SLACK = 1e-5
+
+
+def _paged_traverse(scene: Scene, o3, d3, t_limit, active, vol_enabled, mode):
+    """``traverse`` one page of volumes at a time, merged -> the dict of
+    one traversal over all volumes (t_limit and vol_enabled may be None).
+
+    A page can only improve a ray's result if the ray enters one of the
+    page's cubes before its best t so far, so each page gets its earliest
+    entry t per ray first (disabled volumes and NaN count as a miss) and
+    walks only the rays that pass.  In nearest mode a later page's limit
+    sits a little above the best t (TIE_SLACK): an exact tie still comes
+    back and the merge gives it to the lower volume id of the whole set
+    (``vol_off`` restores it), so the walk order changes no result.
+    Occluded rays leave the later pages."""
+    pages = scene.volumes.pages
+    pmins = []
+    for pv in pages:
+        ent = entry_t(pv.inv, pv.cube_min, o3, d3)  # [pn, N]
+        if vol_enabled is not None:
+            ent = torch.where(vol_enabled[pv.vol_off:pv.vol_off + pv.n, None], ent, BIG)
+        ent = torch.where(torch.isnan(ent), BIG, ent)
+        pmins.append(ent.amin(0))
+    best = None
+    for pv, pmin in zip(pages, pmins):
+        off = pv.vol_off
+        lim = t_limit
+        if best is not None and mode != "occluded":
+            lim = torch.maximum(torch.nextafter(best["t"], torch.full_like(best["t"], math.inf)),
+                                best["t"] * (1.0 + TIE_SLACK))
+            if t_limit is not None:
+                lim = torch.minimum(t_limit, lim)
+        if best is not None and mode == "occluded":
+            active = active & ~best["hit"]
+        act_p = active & (pmin < (BIG if lim is None else lim))
+        res = traverse(*_vol_args(scene, pv), o3, d3, lim, act_p,
+                       None if vol_enabled is None else vol_enabled[off:off + pv.n].contiguous(),
+                       pv.occ, pv.bricksize, mode=mode)
+        if mode != "occluded":
+            res["vol"] = torch.where(res["hit"], res["vol"] + off, res["vol"])
+        if best is None:
+            best = res
+        elif mode == "occluded":
+            best["hit"] = best["hit"] | res["hit"]
+        else:
+            # strict (t, volume id of the whole set) adoption
+            adopt = res["hit"] & (~best["hit"] | (res["t"] < best["t"])
+                                  | ((res["t"] == best["t"]) & (res["vol"] < best["vol"])))
+            best = {k: torch.where(adopt, res[k], best[k]) for k in best}
+            best["hit"] = (best["hit"] | res["hit"]) & active
+    return best
+
+
+def _traverse_world(scene: Scene, o3, d3, t_limit, active, mode):
+    """``traverse`` over the scene's volumes, all enabled: page by page
+    where ``_pages`` says so, else in one call."""
+    if _pages(scene, o3) is not None:
+        return _paged_traverse(scene, o3, d3, t_limit, active, None, mode)
+    vols = scene.volumes
+    return traverse(*_vol_args(scene), o3, d3, t_limit, active, None, vols.occ,
+                    vols.bricksize, mode=mode)
 
 
 def find_nearest_world(scene: Scene, o, d, active):
     """Renderer::FindNearest (renderer.cpp:946-1018): all volumes in one
-    traversal, then spheres and triangles merged.  o, d: [N, 3] or
-    component tuples.  Returns dict with t, mat, vol, hit, nx, ny, nz,
-    prim_adopt and prim_inside."""
+    traversal (page by page where ``_pages`` says so), then spheres and
+    triangles merged.  o, d: [N, 3] or component tuples.  Returns dict
+    with t, mat, vol, hit, nx, ny, nz, prim_adopt and prim_inside."""
     o3 = (cstack(o) if isinstance(o, tuple) else o).contiguous()
     d3 = (cstack(d) if isinstance(d, tuple) else d).contiguous()
-    vols = scene.volumes
-    # no t limit, every volume enabled
-    res = traverse(*_vol_args(scene), o3, d3, None, active, None, vols.occ, vols.bricksize,
-                   mode="nearest")
+    res = _traverse_world(scene, o3, d3, None, active, "nearest")  # no t limit
     t, vol = res["t"], res["vol"]
     mat = torch.where(res["hit"], res["cell"], MAT_NONE)
     nrm = (res["nx"], res["ny"], res["nz"])
@@ -182,10 +267,7 @@ def is_occluded_world(scene: Scene, o, d, t_limit, active):
     """Renderer::IsOccluded (renderer.cpp:209-243) in one traversal."""
     o3 = (cstack(o) if isinstance(o, tuple) else o).contiguous()
     d3 = (cstack(d) if isinstance(d, tuple) else d).contiguous()
-    vols = scene.volumes
-    res = traverse(*_vol_args(scene), o3, d3, t_limit, active, None, vols.occ,
-                   vols.bricksize, mode="occluded")
-    occ = res["hit"]
+    occ = _traverse_world(scene, o3, d3, t_limit, active, "occluded")["hit"]
     occ = occ | spheres_occluded(scene.spheres, o3, d3, t_limit)
     return occ | triangles_occluded(scene.triangles, o3, d3, t_limit)
 
@@ -193,10 +275,22 @@ def is_occluded_world(scene: Scene, o, d, t_limit, active):
 def material_exit_world(scene: Scene, o, d, vol_idx, mode_code, mask):
     """FindMaterialExit / FindSmokeExit through each ray's own volume
     (renderer.cpp:1160-1179, 1265-1280).  Returns (in_volume, t, normal
-    components)."""
+    components).  Page by page, each ray marches in the one page that
+    holds its volume."""
+    o3, d3 = o.contiguous(), d.contiguous()
     vols = scene.volumes
-    res = exit_march(*_vol_args(scene), o.contiguous(), d.contiguous(), mask,
-                     mode_code, vol_idx, vols.occ, vols.bricksize)
+    pages = _pages(scene, o3)
+    if pages is None:
+        res = exit_march(*_vol_args(scene), o3, d3, mask, mode_code, vol_idx, vols.occ,
+                         vols.bricksize)
+    else:
+        res = None
+        for pv in pages:
+            in_page = (vol_idx >= pv.vol_off) & (vol_idx < pv.vol_off + pv.n)
+            local = torch.clamp(vol_idx - pv.vol_off, 0, pv.n - 1)
+            r = exit_march(*_vol_args(scene, pv), o3, d3, mask & in_page, mode_code, local,
+                           pv.occ, pv.bricksize)
+            res = r if res is None else {k: torch.where(in_page, r[k], res[k]) for k in res}
     return res["in_vol"], res["t"], (res["nx"], res["ny"], res["nz"])
 
 
@@ -521,10 +615,105 @@ def _apply_deferred_sky(scene: Scene, cfg: RenderConfig, st):
     return cadd(st["rad"], cmul(st["sky_tp"], sky))
 
 
+# the packed path state's rows: origin, direction, throughput, radiance,
+# inside-medium flag, active flag, the ray's first lane (exact in f32 below
+# 2^24 rays), deferred sky throughput and direction (the JAX package's
+# columns without its in_light flag, which the game layer adds)
+_PK_ACTIVE, _PK_PIX, _PK_ROWS = 13, 14, 21
+
+
+def _pack_path(st, pix):
+    """The path state as one [21, n] f32 matrix, a state component a row,
+    so that a permutation of the wavefront is one gather along it and the
+    components come back contiguous.  (The JAX package packs [n, 22] and
+    gathers rows; here that layout's strided packing and unpacking cost
+    more than its row gather saved: PERF.md.)"""
+    rows = (list(st["o"]) + list(st["d"]) + list(st["tp"]) + list(st["rad"])
+            + [st["in_glass"].to(F32), st["active"].to(F32), pix]
+            + list(st["sky_tp"]) + list(st["sky_d"]))
+    return torch.stack(rows, dim=0)
+
+
+def _unpack_path(pk):
+    """[21, n] -> (the state dict, the ray's first lane)."""
+    c = pk.unbind(0)
+    return dict(o=c[0:3], d=c[3:6], tp=c[6:9], rad=c[9:12], in_glass=c[12] > 0.5,
+                active=c[_PK_ACTIVE] > 0.5, sky_tp=c[15:18], sky_d=c[18:21]), c[_PK_PIX]
+
+
+def _world_bounds(scene: Scene):
+    """World box over all instances (lo, hi: [3] each): the 8 corners of
+    every volume's object-space cube taken through fwd."""
+    vols = scene.volumes
+    lo = hi = None
+    for cx in (0.0, 1.0):
+        for cy in (0.0, 1.0):
+            for cz in (0.0, 1.0):
+                p = vols.cube_min + torch.tensor([cx, cy, cz], dtype=F32,
+                                                 device=vols.cube_min.device)
+                w = torch.einsum("vij,vj->vi", vols.fwd[:, :3, :3], p) + vols.fwd[:, :3, 3]
+                lo = w if lo is None else torch.minimum(lo, w)
+                hi = w if hi is None else torch.maximum(hi, w)
+    return lo.amin(0), hi.amax(0)
+
+
+def _morton_key(pk, lo, span):
+    """The sort key of each packed ray, [n] i32: the morton code of its
+    origin in the world box (5 bits an axis) above its direction octant;
+    1 << 30 for a terminated ray, which sorts it to the tail."""
+    n = pk.shape[1]
+    q = []
+    for c in range(3):
+        f = (pk[c] - lo[c]) / span[c]
+        # a saturating cast, NaN -> 0, as XLA's
+        q.append(torch.clamp(torch.nan_to_num(f * 32.0, nan=0.0), -1.0, 32.0)
+                 .to(torch.int32).clamp(0, 31))
+    m = torch.zeros(n, dtype=torch.int32, device=pk.device)
+    for bit in range(5):
+        for c in range(3):
+            m = m | (((q[c] >> bit) & 1) << (3 * bit + c + 3))
+    octant = ((pk[3] < 0).to(torch.int32) + 2 * (pk[4] < 0).to(torch.int32)
+              + 4 * (pk[5] < 0).to(torch.int32))
+    return torch.where(pk[_PK_ACTIVE] <= 0.5, 1 << 30, m | octant)
+
+
+def _reorder_perm(pk, lo, span):
+    """The stable permutation that sorts the packed rays by ``_morton_key``."""
+    return torch.sort(_morton_key(pk, lo, span), stable=True)[1]
+
+
+def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key):
+    """The bounce loop with the wavefront re-clustered in space: before
+    bounce 1 and then every cfg.bounce_reorder_period-th bounce the state
+    is sorted by ``_morton_key`` (one stable sort and one gather of the
+    packed state), so a block's rays start in the same coarse world cell
+    heading the same way and the terminated rays gather at the tail.
+    Bounce 0 keeps the camera's order.  The state carries each ray's first
+    lane, and the radiance goes back to it at the end by the inverse
+    permutation.  -> radiance components in the first order."""
+    n, dev = state["active"].shape[0], state["active"].device
+    lo, hi = _world_bounds(scene)
+    span = torch.clamp(hi - lo, min=1e-6)
+    per = max(cfg.bounce_reorder_period, 1)
+    pix = torch.arange(n, dtype=F32, device=dev)
+    for depth in range(cfg.max_bounces + 1):
+        if not bool(state["active"].any()):
+            break
+        if depth > 0 and (depth - 1) % per == 0:
+            pk = _pack_path(state, pix)
+            state, pix = _unpack_path(pk.index_select(1, _reorder_perm(pk, lo, span)))
+        state = _bounce_core(scene, cfg, state, fold_in(key, depth))
+    rad = cstack(_apply_deferred_sky(scene, cfg, state))
+    inv = torch.empty(n, dtype=torch.int64, device=dev)
+    inv[pix.to(torch.int64)] = torch.arange(n, device=dev)
+    return rad.index_select(0, inv)
+
+
 def trace_path(scene: Scene, cfg: RenderConfig, o, d, key):
     """Full stochastic light transport; o, d: [N, 3] -> radiance [N, 3].
     Up to max_bounces + 1 segments (renderer.cpp:1076-1083), stopping
-    early once every ray has terminated."""
+    early once every ray has terminated.  With cfg.bounce_reorder the
+    wavefront is re-sorted between bounces (``_trace_path_reordered``)."""
     n, dev = o.shape[0], o.device
     zero3 = tuple(torch.zeros(n, dtype=F32, device=dev) for _ in range(3))
     state = dict(
@@ -535,6 +724,11 @@ def trace_path(scene: Scene, cfg: RenderConfig, o, d, key):
         active=torch.ones(n, dtype=torch.bool, device=dev),
         sky_tp=zero3, sky_d=cpack(d),
     )
+    reorder = (cfg.bounce_reorder == "always"
+               or (cfg.bounce_reorder == "auto" and _is_paged(scene)
+                   and n >= cfg.compact_min))
+    if reorder and cfg.max_bounces >= 1:
+        return _trace_path_reordered(scene, cfg, state, key)
     for depth in range(cfg.max_bounces + 1):
         if not bool(state["active"].any()):
             break

@@ -5,8 +5,12 @@ dict of numpy arrays under the JAX field names and returns the port's
 ``Scene`` on ``device`` (the card unless the caller asks for the
 CPU), so both packages can render the very same arrays.  Fields that
 only feed the TPU kernels' VMEM tables (``occ_slot``, ``occ_rows0``,
-``pal``, ``pal_rows0``, ``pages``) are ignored.  ``diff_params_from_numpy`` does the same for the JAX
-``DiffParams``.
+``pal``, ``pal_rows0``) are ignored.  A paged JAX scene's pages come
+across as ``tree["volumes"]["pages"]``, one dict per page in walk order
+with its ``vol_off`` and its arrays (of which ``gridsize`` gives the page
+its length): the port cuts the same pages out of its own arrays, so both
+packages page alike.  ``diff_params_from_numpy`` does the same for the
+JAX ``DiffParams``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,14 @@ def scene_from_numpy(tree: dict, device="cuda") -> Scene:
     for name, cls in _RECORDS.items():
         sub = tree[name]
         parts[name] = cls(**{f.name: _tensor(sub[f.name], device)
-                             for f in fields(cls)})
+                             for f in fields(cls) if f.name not in ("pages", "vol_off")})
+    pages = tree["volumes"].get("pages")
+    if pages:
+        bounds = [(int(p["vol_off"]), int(p["vol_off"]) + len(p["gridsize"])) for p in pages]
+        for (lo, hi), p in zip(bounds, pages):  # a page is a slice of the parent
+            if not np.array_equal(np.asarray(p["inv"]), np.asarray(tree["volumes"]["inv"])[lo:hi]):
+                raise ValueError(f"page at {lo} is not volumes [{lo}, {hi}) of its parent")
+        parts["volumes"] = parts["volumes"].with_pages(bounds)
     return Scene(**parts)
 
 

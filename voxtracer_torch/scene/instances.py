@@ -118,6 +118,63 @@ def build_volumes(specs: list[VolumeSpec], pad_size: int | None = None) -> VoxVo
         bricksize=t(bricksize), occ=t(build_occupancy(grids)))
 
 
+def instance_world_aabbs(volumes: VoxVolumes):
+    """World-space box per instance -> (lo, hi), [V, 3] f32 each: the 8
+    corners of the object-space cube [cube_min, cube_min + 1] taken
+    through fwd."""
+    cube_min, fwd = volumes.cube_min.numpy(), volumes.fwd.numpy()
+    v = volumes.n
+    lo = np.zeros((v, 3), np.float32)
+    hi = np.zeros((v, 3), np.float32)
+    for i in range(v):
+        b0 = np.asarray(cube_min[i], np.float32)
+        corners = np.array([[b0[0] + x, b0[1] + y, b0[2] + z]
+                            for x in (0, 1) for y in (0, 1) for z in (0, 1)],
+                           np.float32)
+        m = np.asarray(fwd[i], np.float32)
+        world = corners @ m[:3, :3].T + m[:3, 3]
+        lo[i] = world.min(axis=0)
+        hi[i] = world.max(axis=0)
+    return lo, hi
+
+
+def paginate_volumes(vols: VoxVolumes, page: int = 24) -> VoxVolumes:
+    """Split a large instance set (CPU tensors) into pages of at most
+    `page` volumes, kept on ``vols.pages``; a set of at most `page`
+    volumes comes back as it is.
+
+    The volumes are first reordered along a morton curve over their world
+    box centres (4 bits an axis, a stable sort), parent arrays and pages
+    alike, so every page is a compact cluster and one volume order holds
+    everywhere: the earliest-volume tie-break follows it.  ``pages`` lists
+    the pages in walk order, the largest summed world volume (|det fwd|)
+    first: its hits bound the later pages' walks.  A page's ``vol_off``
+    keeps its place in the parent, so volume ids do not depend on the walk
+    order."""
+    v = vols.n
+    if v <= page:
+        return vols
+    lo_w, hi_w = instance_world_aabbs(vols)
+    ctr = (lo_w + hi_w) * 0.5
+    cmin = ctr.min(axis=0)
+    span = np.maximum(ctr.max(axis=0) - cmin, 1e-6)
+    q = np.clip(((ctr - cmin) / span * 16.0).astype(np.int64), 0, 15)
+    morton = np.zeros(v, np.int64)
+    for bit in range(4):
+        for c in range(3):
+            morton |= ((q[:, c] >> bit) & 1) << (3 * bit + c)
+    perm = torch.from_numpy(np.argsort(morton, kind="stable"))
+    vols = VoxVolumes(
+        grids=vols.grids[perm], gridsize=vols.gridsize[perm], inv=vols.inv[perm],
+        fwd=vols.fwd[perm], cube_min=vols.cube_min[perm], bricks=vols.bricks[perm],
+        bricksize=vols.bricksize[perm], occ=vols.occ[:, perm].contiguous())
+    bounds = [(lo, min(lo + page, v)) for lo in range(0, v, page)]
+    fw = vols.fwd.numpy()
+    sizes = [float(np.abs(np.linalg.det(fw[lo:hi, :3, :3])).sum()) for lo, hi in bounds]
+    order = np.argsort(-np.asarray(sizes), kind="stable")
+    return vols.with_pages([bounds[i] for i in order])
+
+
 def make_spheres(items=()) -> Spheres:
     """items: iterable of (cx, cy, cz, radius, material)."""
     a = np.asarray(items, np.float32).reshape(-1, 5)

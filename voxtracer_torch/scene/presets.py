@@ -9,10 +9,16 @@ scene with ``scene.to(device)``.
 * ``glass_sphere_box``: the small dielectric test box, rendered whitted.
 * ``media_path``: the glass box plus a smoke volume, path traced, so rays
   march through both glass and smoke.
+* ``city_xl_like_path``: a stand-in for the 111-volume city scene
+  (presets.city_xl_path) in its layout, with three procedural building
+  grids for the SmallBuilding01/02 and TallBuilding01 ``.vox`` models,
+  which are not in the repository.  The one preset past 64 volumes: its
+  volume set is paginated.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from voxtracer_torch.config import RenderConfig
@@ -20,7 +26,8 @@ from voxtracer_torch.core.types import GLASS, Scene, Sky
 from voxtracer_torch.io.hdr import procedural_sky
 from voxtracer_torch.render.camera import make_camera
 from voxtracer_torch.scene.instances import (VolumeSpec, build_volumes,
-                                             make_spheres, make_triangles)
+                                             make_spheres, make_triangles,
+                                             paginate_volumes)
 from voxtracer_torch.scene.lights import make_lights
 from voxtracer_torch.scene.materials import default_materials
 from voxtracer_torch.scene.procgen import (generate_noise_grid,
@@ -115,8 +122,46 @@ def media_path(width=256, height=256, bounces=4):
     return scene, cfg
 
 
+def city_like_specs(gridsize=64, nx=11, nz=10, vary_scale=True, seeds=(11, 12, 13)) -> list:
+    """city_path's volumes (presets.py:113-133) with three noise grids in
+    place of its three building models: an nx x nz grid of buildings at
+    0.6 spacing, each a random model at a random quarter turn (and, with
+    vary_scale, a scale in [0.7, 1.3)), drawn as there from
+    ``default_rng(7)``; then the 12 x 0.02 x 12 floor slab."""
+    grids = [generate_noise_grid(gridsize, seed=s) for s in seeds]
+    specs = []
+    rng = np.random.default_rng(7)
+    for ix in range(nx):
+        for iz in range(nz):
+            g = grids[int(rng.integers(0, len(grids)))]
+            s = float(rng.uniform(0.7, 1.3)) if vary_scale else 1.0
+            specs.append(VolumeSpec(
+                position=(ix * 0.6 - nx * 0.3, 0.0, iz * 0.6 - nz * 0.3),
+                gridsize=gridsize, grid=g, scale=(s, s, s),
+                rotation=(0.0, float(rng.integers(0, 4)) * np.pi / 2.0, 0.0)))
+    specs.append(VolumeSpec(position=(0.0, -0.51, 0.0), gridsize=1,
+                            scale=(12.0, 0.02, 12.0), grid=solid_grid(1, 0)))
+    return specs
+
+
+def city_xl_like_path(width=1920, height=1080, gridsize=64, bounces=4, page=24):
+    """The 111-volume city scene's layout without its assets: 110
+    procedural buildings plus the floor, paginated (5 pages of at most 24
+    volumes, morton order), under city_path's light (presets.py:139) and
+    city_xl_path's pulled-back camera (presets.py:159), 4-bounce path
+    tracing."""
+    vols = paginate_volumes(build_volumes(city_like_specs(gridsize)), page=page)
+    lights = make_lights(point=((0.0, 5.0, -4.0, 20.0, 20.0, 18.0),))
+    cam = make_camera(pos=(-3.4, 2.6, -5.6), target=(0.0, 0.2, 0.0), aspect=width / height)
+    scene = _assemble(vols, default_materials(), lights, cam)
+    cfg = RenderConfig(width=width, height=height, mode="path",
+                       max_bounces=bounces, activate_sky=True)
+    return scene, cfg
+
+
 PRESETS = {
     "monu_like": monu_like_path,
     "glassbox": glass_sphere_box,
     "media": media_path,
+    "city_xl_like": city_xl_like_path,
 }
