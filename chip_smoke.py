@@ -28,7 +28,20 @@ drives the port's two halves of the main path through its entry points:
   swapped in) and against the frame without the reorder; K1 and K2 on
   every call of that frame, each held against the plain version and
   against the paged walk (bit for bit), with the rays each page's cull
-  keeps, and timed once more with the floor's page first.
+  keeps, and timed once more with the floor's page first;
+* the frozen-path replay gradients (``replay_phases``): the active replay
+  of the 1080p monu-like frame (diff.replay_active: the precompute, the
+  gradient timed with its peak memory, the FD check of
+  scripts/bench_replay_active.py at its 2% bar, 3 Adam steps), K1 on
+  every call of its precompute and K4 and K4-bwd on every distinct call
+  shape of its step; the whole replay at 256x144 through the kernels
+  against the plain versions, and its estimator against the capability
+  replay's (tests/test_replay_active.py's bar); the capability replay
+  (diff.path_replay, the glass and smoke chains through the exit march)
+  on the media scene and glassbox at 256x256;
+* the thin-lens frame: the 1080p path frame autofocused on the centre
+  pixel with use_dof (cli render --dof's set-up), timed beside the
+  pinhole frame.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -288,19 +301,29 @@ def ptxas_functions(text):
 
 
 @contextlib.contextmanager
-def captured_lookups(calls):
+def captured_lookups(calls, every_n=False):
     """Swap recording wrappers into the bindings through which the port
     reaches K4 and K4-bwd (the integrator's and the lookup module's own, as
     ``plain_versions`` swaps); for each (pass, K, C) keep a copy of the
     inputs of the largest call in `calls` (for the backward, the largest
-    whose cotangent is not all zero)."""
+    whose cotangent is not all zero), or with `every_n` of one call of
+    each (pass, N, K, C) (for the backward, the first whose cotangent is
+    not all zero, else the first; its plan is a function of N, K and C)."""
     from voxtracer_torch.kernels import lookup
     from voxtracer_torch.render import integrator
 
-    def keep(key, args):
+    kept_nonzero = {}
+
+    def keep(key, args, nonzero=True):
         n = args[1].shape[0]
-        if key not in calls or calls[key][1].shape[0] < n:
+        if every_n:
+            key = (key[0], n, *key[1:])
+            fresh = key not in calls or (nonzero and not kept_nonzero[key])
+        else:
+            fresh = nonzero and (key not in calls or calls[key][1].shape[0] < n)
+        if fresh:
             calls[key] = tuple(a.detach().clone() if hasattr(a, "clone") else a for a in args)
+            kept_nonzero[key] = nonzero
 
     def fwd(fn):
         def rec(tab, idx):
@@ -310,8 +333,8 @@ def captured_lookups(calls):
 
     def bwd(fn):
         def rec(ct, idx, k):
-            if bool(ct.any()):  # a segment of zero length passes an all-zero ct
-                keep(("bwd", k, ct.shape[1]), (ct, idx, k))
+            # a segment of zero length passes an all-zero ct
+            keep(("bwd", k, ct.shape[1]), (ct, idx, k), bool(ct.any()))
             return fn(ct, idx, k)
         return rec
 
@@ -609,6 +632,314 @@ def host_times(fn, reps=3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), min(times), max(times) - min(times), times
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, measure, bwd_err,
+                  results):
+    """Phases [18]-[21]: the frozen-path replay gradients and the thin-lens
+    frame, on `scene` (the 1080p monu-like scene) and on 256x144 and 256^2
+    scenes, with main's helpers (``smi`` is the log lines' card suffix;
+    ``results`` the kernels' JSON entries) -> {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from voxtracer_torch import cli
+    from voxtracer_torch.core.rng import fold_in
+    from voxtracer_torch.diff import path_replay, replay_active, train, volumetric
+    from voxtracer_torch.kernels import lookup
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
+
+    dev = scene.device
+    n = cfg.width * cfg.height
+    paths = {}
+
+    def marches(pre):
+        out = list(pre["marches"].items())
+        for name, lst in pre["light_marches"].items():
+            out += [(f"{name}[{i}]", m) for i, m in enumerate(lst)]
+        return out
+
+    # ---- 18. the active replay at full width, counted: the precompute
+    # (hard traversals, K1) and one gradient (K4 and K4-bwd); then timed,
+    # its peak memory, the FD check of scripts/bench_replay_active.py and 3
+    # Adam steps toward a target rendered at the true params
+    params = volumetric.params_from_scene(scene)
+    pcalls, lcalls = [], {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with captured_traversals(pcalls):
+        pre = replay_active.replay_precompute(scene, cfg, key)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    denom = float(n * 3)
+    zero = torch.zeros((pre["n_c"], 3), device=dev)
+    grad_fn, loss_fn = replay_active.make_replay_grad_fn(scene, cfg, pre, zero, denom)
+    with captured_lookups(lcalls, every_n=True):
+        g = grad_fn(params)
+    torch.cuda.synchronize()
+    size = f"{cfg.width}x{cfg.height}"
+    paths[f"replay {size} precompute + gradient"] = launched = counts()
+    for kk in ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"):
+        check(launched[kk] > 0, f"{kk} not launched by the replay precompute and gradient")
+    for f in ("density_logits", "albedo_table"):
+        gf = getattr(g, f)
+        check(bool(torch.isfinite(gf).all()) and float(gf.abs().max()) > 0,
+              f"replay {f} gradient is not finite or all zero")
+    log(f"[18] replay precompute {cfg.width}x{cfg.height}: {pre_s:.2f} s (with copies of its "
+        f"K1 calls' rays), n_hit {pre['n_hit']}, n_c {pre['n_c']}, media lanes "
+        f"{pre['media_lanes']}; launches {launched}")
+    for name, m in marches(pre):
+        log(f"    march {name}: m {m['m']}, bins (steps, segments) "
+            f"{[(st, hi - lo) for st, lo, hi in m.get('bins', [])]}")
+    med, lo, spread, times = host_times(lambda: grad_fn(params))
+    torch.cuda.reset_peak_memory_stats()
+    grad_fn(params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[18] replay gradient {cfg.width}x{cfg.height}: median {med:.1f} ms, min {lo:.1f} ms, "
+        f"spread {spread:.1f} ms -> {n / med / 1e3:.3f} Mrays/s; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes) ({smi}); reps {times}")
+
+    # the FD check on the strongest density cell, eps 2e-2; the loss's sum
+    # taken in float64, so that the two losses' difference (one cell of a
+    # 1080p frame) is not lost to the rounding of the whole frame's sum
+    live = (torch.arange(pre["n_c"], device=dev) < pre["n_hit"])[:, None]
+
+    def loss64(p):
+        with torch.no_grad():
+            img = replay_active.render_replay_active(p, scene, cfg, pre).double()
+        return float(torch.where(live, img * img, 0.0).sum()) / denom
+
+    gd = g.density_logits
+    cell = tuple(int(i) for i in np.unravel_index(int(gd.abs().argmax()), gd.shape))
+    eps = 2e-2
+    vals = []
+    for sgn in (1.0, -1.0):
+        dl = params.density_logits.clone()
+        dl[cell] += sgn * eps
+        vals.append(loss64(dataclasses.replace(params, density_logits=dl)))
+    fd = (vals[0] - vals[1]) / (2 * eps)
+    ad = float(gd[cell])
+    fd_rel = abs(fd - ad) / max(abs(fd), 1e-30)
+    check(fd_rel <= 0.02, f"replay FD: fd {fd} ad {ad} relative error {fd_rel}")
+    log(f"[18] replay FD, cell {cell}, eps {eps}: fd {fd:.6g}, ad {ad:.6g}, relative error "
+        f"{fd_rel:.4%} (bar 2%); loss at the params {float(loss_fn(params)):.6g}")
+
+    # 3 Adam steps (the port's optimizer, diff/train.py): target rendered at
+    # the true params; start from 8 albedo rows of the hit lanes pulled to
+    # grey and volume 1's density thinned (logit 6 -> 1), as
+    # scripts/demo_inverse_replay.py starts
+    with torch.no_grad():
+        target = replay_active.render_replay_active(params, scene, cfg, pre)
+    at = params.albedo_table.clone()
+    rows = [int(r) for r in torch.unique(pre["m0"][pre["hit"]]) if int(r) < 255][:8]
+    at[rows] = 0.5 * at[rows] + 0.25
+    dl = params.density_logits.clone()
+    dl[1] = torch.where(dl[1] > 0, 1.0, dl[1])
+    tp = volumetric.DiffParams(density_logits=dl, albedo_table=at)
+    _, init = train.make_train_step(cfg, lr=3e-2)
+    opt = init(tp)
+    losses, times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = replay_active.mse_loss_replay_active(tp, scene, cfg, pre, target, denom)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"replay Adam losses {losses}")
+    log(f"[18] replay 3 Adam steps (lr 3e-2, albedo rows {rows}, volume 1 thinned): losses "
+        f"{losses}; step ms {times} ({smi})")
+    del tp, opt, target, g
+
+    # ---- 19. the kernels on the replay's calls: K1 on every call of the
+    # precompute; K4 and K4-bwd on every distinct shape of one gradient
+    log(f"[19] K1 on the {len(pcalls)} calls of the {cfg.width}x{cfg.height} replay precompute:")
+    k1 = next(r for r in results if r["name"] == "traverse_nearest")
+    for i, (mode, args) in enumerate(pcalls):
+        check(mode == "nearest", f"the precompute made a {mode} traversal")
+        entry = time_traversal(f"replay precompute, K1 call {i}", mode, args,
+                                 plain_too=i == 0)[0]
+        entry["path"] = "replay precompute"
+        k1.setdefault("calls", []).append(entry)
+    del pcalls
+    log(f"[19] K4 and K4-bwd on the {len(lcalls)} distinct call shapes of one replay gradient:")
+    sms = lookup.device_consts(0)[0]
+    for key_ in sorted(lcalls, key=str):
+        if key_[0] == "fwd":
+            tab, idx = lcalls[key_]
+            got = lookup.lookup_rows(tab, idx)
+            check(torch.equal(got, lookup.lookup_rows_plain(tab, idx)),
+                  f"K4 rows differ at {list(tab.shape)} x {idx.shape[0]}")
+            cidx = idx.clamp(0, tab.shape[0] - 1)
+            *_, entry = measure(
+                f"replay K4 {list(tab.shape)} x {idx.shape[0]}",
+                lambda: lookup.lookup_rows(tab, idx), None,
+                lambda: lookup.lookup_rows_plain(tab, idx),
+                lambda: torch.index_select(tab, 0, cidx), "index_select",
+                bound(nbytes(tab, idx, got), 3 * got.numel()), {})
+            entry.update(path="replay gradient", max_abs_err=0.0)
+            next(r for r in results if r["name"] == "lookup_rows")["shapes"].append(entry)
+        else:
+            ct, idx, kk = lcalls[key_]
+            planned = lookup.bwd_plan(ct.shape[0], kk, ct.shape[1], sms)[0]
+            zero = not bool(ct.any())
+            if zero:
+                # every call of this shape passed zeros (no lead or tail
+                # sample of its segments lies in a grid with a length):
+                # zeros back, then held on normal rows at the same ids
+                check(not bool(lookup.lookup_rows_bwd(ct, idx, kk).any()),
+                      f"K4-bwd of zeros at [{kk}, {ct.shape[1]}] x {idx.shape[0]}")
+                gen = torch.Generator(device=dev).manual_seed(idx.shape[0])
+                err, ratio = bwd_err(torch.randn(ct.shape, generator=gen, device=dev), idx,
+                                       kk, planned)
+            else:
+                err, ratio = bwd_err(ct, idx, kk, planned)
+            acc = ct.new_zeros((kk, ct.shape[1]))
+            cidx = idx.clamp(0, kk - 1)
+            *_, entry = measure(
+                f"replay K4-bwd [{kk}, {ct.shape[1]}] x {idx.shape[0]} (acc={planned})",
+                lambda: lookup.lookup_rows_bwd(ct, idx, kk), None,
+                lambda: lookup.lookup_rows_bwd_plain(ct, idx, kk),
+                lambda: acc.index_add_(0, cidx, ct), "f32 index_add_",
+                bound(nbytes(ct, idx) + kk * ct.shape[1] * 4, 3 * ct.numel()), {})
+            entry.update(path="replay gradient", plan=planned, max_abs_err=err,
+                         error_over_tolerance=ratio, zero_cotangent=zero)
+            log(f"      error {err:.3g}, {ratio:.3g} x the tolerance"
+                + (" (the step's cotangent all zero: held on normal rows at its ids)"
+                   if zero else ""))
+            next(r for r in results if r["name"] == "lookup_rows_bwd")["shapes"].append(entry)
+    del lcalls
+
+    # the whole replay at 256x144 through the kernels against the plain
+    # versions: the precompute's frozen structure, then the gradient and
+    # the image on the kernels' precompute
+    sw, sh = 256, 144
+    sscene, scfg = monu_like_path(sw, sh, bounces=4)
+    sscene = sscene.to(dev)
+    sparams = volumetric.params_from_scene(sscene)
+    spre = replay_active.replay_precompute(sscene, scfg, key)
+    with plain_versions():
+        ppre = replay_active.replay_precompute(sscene, scfg, key)
+    for k_ in ("n_hit", "n_c"):
+        check(spre[k_] == ppre[k_], f"replay precompute {k_}: kernels vs plain")
+    check(torch.equal(spre["sel"], ppre["sel"]), "replay precompute sel: kernels vs plain")
+    same_bins = True
+    for (name, a), (_, b) in zip(marches(spre), marches(ppre)):
+        check(a["m"] == b["m"], f"replay march {name}: m kernels vs plain")
+        same_bins &= a.get("bins") == b.get("bins")
+    sgrad, _ = replay_active.make_replay_grad_fn(
+        sscene, scfg, spre, torch.zeros((spre["n_c"], 3), device=dev), float(sw * sh * 3))
+
+    def grad_and_image():
+        with torch.no_grad():
+            img = replay_active.render_replay_active(sparams, sscene, scfg, spre)
+        return sgrad(sparams), img
+
+    ga, ia = grad_and_image()
+    with plain_versions():
+        gb, ib = grad_and_image()
+    rel = {f: rel_l2(getattr(ga, f), getattr(gb, f)) for f in ("density_logits", "albedo_table")}
+    for f, r in rel.items():
+        check(r <= 1e-4, f"replay {f} gradient: kernels vs plain relative L2 {r}")
+    idiff = max_err(ia, ib)
+    check(idiff <= 1e-5, f"replay image: kernels vs plain max diff {idiff}")
+    log(f"[19] replay {sw}x{sh} kernels vs plain: precompute n_hit, sel and segment counts "
+        f"equal, bins {'equal' if same_bins else 'differ'}; gradient relative L2 density "
+        f"{rel['density_logits']:.3g}, albedo {rel['albedo_table']:.3g}; image max diff "
+        f"{idiff:.3g}")
+
+    # the active estimator against the capability one on the non-media hit
+    # lanes (tests/test_replay_active.py's bar) on that test's scene, one
+    # model (monu_path's which=(1,)) and the floor; the three-model scene's
+    # figures beside it, not held
+    for seeds, held in (((1,), True), ((1, 2, 3), False)):
+        escene, ecfg = monu_like_path(sw, sh, bounces=4, seeds=seeds)
+        escene = escene.to(dev)
+        ep = volumetric.params_from_scene(escene)
+        epre = replay_active.replay_precompute(escene, ecfg, key)
+        with torch.no_grad():
+            img_a = replay_active.render_replay_active(ep, escene, ecfg, epre)
+            ref = path_replay.render_diff_replay(ep, escene, ecfg, key, n_steps=48, seg_steps=24)
+        dd = (img_a - ref.reshape(-1, 3)[epre["sel"].long()])[epre["hit"]].abs()
+        mean, p95 = float(dd.mean()), float(torch.quantile(dd.reshape(-1), 0.95))
+        if held:
+            check(mean < 0.03 and p95 < 0.15, f"active vs capability: mean {mean}, p95 {p95}")
+        log(f"[19] active vs capability replay {sw}x{sh}, {len(seeds)} model(s): mean "
+            f"{mean:.4f}, 95th percentile {p95:.4f} ({'held to' if held else 'beside'} "
+            f"0.03 / 0.15)")
+
+    # ---- 20. the capability replay through the media chains: the media
+    # scene (glass and smoke) and glassbox at 256x256, forward and gradient,
+    # counted and timed; then through the plain versions
+    media = 256
+    for name, (mscene, mcfg) in (("media", media_path(media, media)),
+                                 ("glassbox", glass_sphere_box(media, media))):
+        mscene = mscene.to(dev)
+        mp = volumetric.params_from_scene(mscene, occupied_logit=0.5)
+        tgt = torch.zeros((mcfg.height, mcfg.width, 3), device=dev)
+        vg = volumetric.value_and_grad(path_replay.mse_loss_replay)
+
+        def fwd():
+            with torch.no_grad():
+                return path_replay.render_diff_replay(mp, mscene, mcfg, key)
+
+        reset_counts()
+        img = fwd()
+        loss, mg = vg(mp, mscene, mcfg, tgt, key)
+        torch.cuda.synchronize()
+        paths[f"capability replay {name} {media}^2 forward + gradient"] = launched = counts()
+        for kk in ("traverse_nearest", "exit_march", "lookup_rows", "lookup_rows_bwd"):
+            check(launched[kk] > 0, f"{kk} not launched by the {name} capability replay")
+        check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.01,
+              f"{name} replay image")
+        fmed, flo, fspread, _ = host_times(fwd)
+        gmed, glo, gspread, _ = host_times(lambda: vg(mp, mscene, mcfg, tgt, key))
+        with plain_versions():
+            pimg = fwd()
+            _, pg = vg(mp, mscene, mcfg, tgt, key)
+        frac, dmax = pixels_off(img, pimg)
+        rel = {f: rel_l2(getattr(mg, f), getattr(pg, f)) for f in ("density_logits",
+                                                                     "albedo_table")}
+        for f, r in rel.items():
+            check(r <= 1e-4, f"{name} replay {f} gradient: kernels vs plain relative L2 {r}")
+        log(f"[20] capability replay {name} {media}x{media} (48 + 24 steps): image mean "
+            f"{float(img.mean()):.4f}, loss {float(loss):.6g}; forward median {fmed:.1f} ms "
+            f"(min {flo:.1f}, spread {fspread:.1f}), gradient median {gmed:.1f} ms (min "
+            f"{glo:.1f}, spread {gspread:.1f}) ({smi}); kernels vs plain: {frac:.4%} of pixels "
+            f"off by more than 1e-3 (max {dmax:.3g}), gradient relative L2 density "
+            f"{rel['density_logits']:.3g}, albedo {rel['albedo_table']:.3g}; launches {launched}")
+
+    # ---- 21. the thin-lens frame: the 1080p path frame autofocused on the
+    # centre pixel with use_dof (cli render --dof's set-up), counted, timed
+    # beside the pinhole frame in turns, and held to the plain versions
+    dscene, focal = cli.autofocus(scene, cfg, 2.0)
+    dcfg = dataclasses.replace(cfg, use_dof=True)
+    reset_counts()
+    dimg = integrator.render_tiled(dscene, dcfg, key, 1, 1)
+    torch.cuda.synchronize()
+    paths[f"dof {size} frame"] = launched = counts()
+    for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+        check(launched[kk] > 0, f"{kk} not launched by the DOF frame")
+    check(bool(torch.isfinite(dimg).all()) and 0.02 < float(dimg.mean()) < 10.0,
+          f"DOF frame mean {float(dimg.mean())}")
+    turns = [host_times(lambda: integrator.render_tiled(sc, cf, fold_in(key, 1), 1, 1))[0]
+             for sc, cf in ((scene, cfg), (dscene, dcfg), (dscene, dcfg), (scene, cfg))]
+    with plain_versions():
+        pimg = integrator.render_tiled(dscene, dcfg, key, 1, 1)
+    frac, dmax = pixels_off(dimg, pimg)
+    log(f"[21] DOF {cfg.width}x{cfg.height} path frame, focal distance {focal:.3f}, defocus 2: "
+        f"mean {float(dimg.mean()):.4f}; launches {launched}; in turns pinhole, DOF, DOF, pinhole: "
+        + ", ".join(f"{ms:.1f} ms" for ms in turns) + f" ({smi}); kernels vs plain: "
+        f"{frac:.4%} of pixels off by more than 1e-3 (max {dmax:.3g})")
+    return paths
 
 
 def main(argv=None) -> int:
@@ -1535,12 +1866,16 @@ def main(argv=None) -> int:
         f"{frac:.4%} of pixels differ by more than 1e-3; reorder forced on: {rfrac:.4%}")
     del cscene, cv
 
+    # ---- 18-21. the replay gradients and the thin-lens frame
+    replay_paths = replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal,
+                                 measure, bwd_err, results)
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
-             "probe": probe_counts, "city_xl_like 1080p frame": city_counts}
+             "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:

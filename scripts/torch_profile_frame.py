@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's forward frame or gradient step goes, on one GPU.
 
-    python scripts/torch_profile_frame.py [--step frame|grad|fused|whitted|reproject|city]
+    python scripts/torch_profile_frame.py [--step frame|grad|fused|whitted|reproject|city|replay]
                                           [--width 1920 --height 1080 --bounces 4]
                                           [--reorder auto|always|none]
 
@@ -14,7 +14,9 @@ static-camera frame against the history of the frames before it
 (render/reproject.render_reproject_frame).  "whitted" renders
 glass_sphere_box through the branch queue at the given width (default
 512x512, depth 5); "city" the path-traced frame of the 111-volume
-city_xl-layout stand-in (bounce reorder "auto", or as --reorder says).  Prints the device time by kernel (top 25), the
+city_xl-layout stand-in (bounce reorder "auto", or as --reorder says);
+"replay" the active path-replay gradient (diff.replay_active, the
+precompute made once before the warm-up).  Prints the device time by kernel (top 25), the
 share of device time spent in the hand-written kernels, and the device
 busy share of the step's wall time.  The chrome trace goes to --trace
 (default out/torch_<step>_trace.json).
@@ -35,7 +37,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from voxtracer_torch.core.rng import fold_in, make_key  # noqa: E402
-from voxtracer_torch.diff import train  # noqa: E402
+from voxtracer_torch.diff import replay_active, train  # noqa: E402
 from voxtracer_torch.diff.volumetric import params_from_scene  # noqa: E402
 from voxtracer_torch.render.integrator import render_tiled  # noqa: E402
 from voxtracer_torch.render.reproject import render_reproject_frame  # noqa: E402
@@ -50,7 +52,8 @@ def main() -> None:
     ap.add_argument("--width", type=int)
     ap.add_argument("--height", type=int)
     ap.add_argument("--bounces", type=int)
-    ap.add_argument("--step", choices=("frame", "grad", "fused", "whitted", "reproject", "city"),
+    ap.add_argument("--step", choices=("frame", "grad", "fused", "whitted", "reproject", "city",
+                                       "replay"),
                     default="frame")
     ap.add_argument("--reorder", choices=("auto", "always", "none"),
                     help="RenderConfig.bounce_reorder (default: the preset's)")
@@ -77,6 +80,12 @@ def main() -> None:
         params = params_from_scene(scene)
         plan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3),
                                                           device="cuda"))
+    if args.step == "replay":
+        params = params_from_scene(scene)
+        pre = replay_active.replay_precompute(scene, cfg, key)
+        replay_grad, _ = replay_active.make_replay_grad_fn(
+            scene, cfg, pre, torch.zeros((pre["n_c"], 3), device="cuda"),
+            float(cfg.width * cfg.height * 3))
 
     def run(i):
         nonlocal history
@@ -87,6 +96,8 @@ def main() -> None:
                                                    fold_in(key, i))
         elif args.step == "grad":
             train.binned_grads(params, scene, plan)
+        elif args.step == "replay":
+            replay_grad(params)
         else:
             train.fused_step(params, scene, cfg, fold_in(key, i), plan)
 

@@ -179,8 +179,10 @@ def test_port_imports_neither_jax_nor_reference():
         import voxtracer_torch.scene.instances, voxtracer_torch.config
         import voxtracer_torch.core.types, voxtracer_torch.kernels.traverse
         import voxtracer_torch.kernels.lookup, voxtracer_torch.kernels.dda_occ
+        import voxtracer_torch.diff.path_replay, voxtracer_torch.diff.replay_active
+        import voxtracer_torch.render.camera
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "voxtracer")]
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "voxtracer")]
         assert not bad, bad
     """)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(

@@ -7,9 +7,12 @@ lookup rows and the probes' results identical, the lookup's backward per entry w
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
 atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
-and whitted and reproject images through the kernels with at most 0.1%
-of pixels off by more than 1e-3 from ones through the plain versions
-(whitted's per-pixel scatter-add runs in no fixed order).  K1 and K2 run
+the replay gradients through the kernels within relative L2 1e-4 of
+ones through the plain versions (the active replay's image within 1e-5),
+and whitted, reproject, thin-lens and capability-replay images through
+the kernels with at most 0.1% of pixels off by more than 1e-3 from ones
+through the plain versions (whitted's per-pixel scatter-add runs in no
+fixed order).  K1 and K2 run
 at up to 256 volumes in one launch, held to the plain walk and to the
 page-by-page walk of the CPU path; K3 is held on the rays that march (of
 the others it returns zeros).
@@ -621,6 +624,142 @@ def test_reproject_kernels_match_plain(cuda):
 
     img, _ = _kernels_vs_plain(run)
     assert 0.01 < float(img.mean()) < 1.0
+
+
+def test_replay_lookups_hold_at_every_shape_of_a_replay_step(cuda):
+    """K4 and K4-bwd on every distinct call shape of one active replay
+    gradient of the 512x288 monu-like frame (64^3 volumes, the bench's
+    bins): the albedo rows at n_c and the brick-sigma rows at each bin's
+    segment count.  A brick-sigma cotangent that is all zero in the step
+    (no lead or tail sample in a grid) gives zeros, and is held on normal
+    rows at the same ids."""
+    from chip_smoke import captured_lookups
+    from voxtracer_torch.diff import replay_active
+
+    scene, cfg = monu_like_path(512, 288, gridsize=64)
+    scene = scene.to(cuda)
+    pre = replay_active.replay_precompute(scene, cfg, make_key(0))
+    grad_fn, _ = replay_active.make_replay_grad_fn(
+        scene, cfg, pre, torch.zeros((pre["n_c"], 3), device=cuda), float(512 * 288 * 3))
+    calls = {}
+    with captured_lookups(calls, every_n=True):
+        grad_fn(volumetric.params_from_scene(scene))
+    k_b = scene.volumes.n * scene.volumes.occ.shape[2]
+    assert ("fwd", pre["n_c"], 256, 3) in calls and ("bwd", pre["n_c"], 256, 3) in calls
+    assert sum(key[2] == k_b for key in calls) >= 4
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for key, args in calls.items():
+        if key[0] == "fwd":
+            tab, idx = args
+            assert torch.equal(lookup.lookup_rows(tab, idx), lookup.lookup_rows_plain(tab, idx))
+            continue
+        ct, idx, k = args
+        _hold_bwd(ct, idx, k)
+        _hold_bwd(torch.randn(ct.shape, generator=gen, device=cuda), idx, k)
+
+
+def test_replay_gradients_kernels_match_plain(cuda):
+    """The active replay's gradient and image at 128x72 on one precompute,
+    and the capability replay's (glass and smoke chains: the exit march)
+    on the media scene at 64x64, through the kernels and through their
+    plain versions."""
+    from voxtracer_torch.diff import path_replay, replay_active
+
+    scene, cfg = monu_like_path(128, 72, gridsize=64)
+    scene = scene.to(cuda)
+    params = volumetric.params_from_scene(scene)
+    pre = replay_active.replay_precompute(scene, cfg, make_key(0))
+    grad_fn, _ = replay_active.make_replay_grad_fn(
+        scene, cfg, pre, torch.zeros((pre["n_c"], 3), device=cuda), float(128 * 72 * 3))
+    mscene, mcfg = media_path(64, 64)
+    mscene = mscene.to(cuda)
+    mparams = volumetric.params_from_scene(mscene, occupied_logit=0.5)
+    vg = volumetric.value_and_grad(path_replay.mse_loss_replay)
+    target = torch.zeros((64, 64, 3), device=cuda)
+
+    def run():
+        with torch.no_grad():
+            img = replay_active.render_replay_active(params, scene, cfg, pre)
+            mimg = path_replay.render_diff_replay(mparams, mscene, mcfg, make_key(0))
+        return grad_fn(params), img, vg(mparams, mscene, mcfg, target, make_key(0))[1], mimg
+
+    before = dict(traverse.launches, **lookup.launches)
+    ga, ia, mga, mia = run()
+    after = dict(traverse.launches, **lookup.launches)
+    for name in ("traverse_nearest", "exit_march", "lookup_rows", "lookup_rows_bwd"):
+        assert after[name] > before[name], name
+    with plain_versions():
+        gb, ib, mgb, mib = run()
+    for a_, b_ in ((ga, gb), (mga, mgb)):
+        for f in ("density_logits", "albedo_table"):
+            a, b = getattr(a_, f), getattr(b_, f)
+            assert float(b.abs().max()) > 0
+            assert float((a - b).norm() / b.norm()) <= 1e-4, f
+    assert float((ia - ib).abs().max()) <= 1e-5
+    assert float(((mia - mib).abs().amax(-1) > 1e-3).float().mean()) <= 1e-3
+
+
+def test_replay_brick_lead_and_tail_kernels_match_plain(cuda):
+    """The active replay on the scene of tests/test_torch_replay_active.py's
+    lead and tail test at 128x128 (the camera and light inside the empty
+    bricks of a grid, unsaturated logits), where the brick-sigma rows carry
+    non-zero cotangents: K4-bwd on each of its brick-sigma calls, then the
+    gradient and image through the kernels and through their plain
+    versions."""
+    from chip_smoke import captured_lookups
+    from voxtracer_torch.config import RenderConfig
+    from voxtracer_torch.diff import replay_active
+    from voxtracer_torch.render.camera import make_camera
+    from voxtracer_torch.scene.lights import make_lights
+    from voxtracer_torch.scene.materials import default_materials
+    from voxtracer_torch.scene.presets import _assemble
+
+    grid = np.full((32, 32, 32), MAT_NONE, np.uint8)
+    grid[:, :, 24:] = 7
+    scene = _assemble(
+        build_volumes([VolumeSpec(position=(-1.0, 0.0, 0.0), gridsize=8,
+                                  grid=np.full((8, 8, 8), 7, np.uint8)),
+                       VolumeSpec(position=(0.0, 0.0, 0.0), gridsize=32, grid=grid)]),
+        default_materials(), lights=make_lights(point=((0.5, 0.8, 0.3, 2.0, 2.0, 2.0),)),
+        camera=make_camera(pos=(0.5, 0.45, 0.05), target=(0.5, 0.5, 1.0), aspect=1.0)).to(cuda)
+    cfg = RenderConfig(width=128, height=128, mode="path", max_bounces=4)
+    params = volumetric.params_from_scene(scene, occupied_logit=0.5, empty_logit=-4.0)
+    pre = replay_active.replay_precompute(scene, cfg, make_key(0))
+    grad_fn, _ = replay_active.make_replay_grad_fn(
+        scene, cfg, pre, torch.zeros((pre["n_c"], 3), device=cuda), float(128 * 128 * 3))
+    calls = {}
+    with captured_lookups(calls, every_n=True):
+        ga = grad_fn(params)
+    k_b = scene.volumes.n * scene.volumes.occ.shape[2]
+    bsig = [args for key, args in calls.items() if key[0] == "bwd" and key[2] == k_b]
+    assert len(bsig) >= 2 and all(bool(ct.any()) for ct, _, _ in bsig)
+    for ct, idx, k in bsig:
+        _hold_bwd(ct, idx, k)
+    assert float(ga.density_logits[1, :, :, :24].abs().max()) > 0
+
+    def run():
+        with torch.no_grad():
+            img = replay_active.render_replay_active(params, scene, cfg, pre)
+        return grad_fn(params), img
+
+    ga, ia = run()
+    with plain_versions():
+        gb, ib = run()
+    for f in ("density_logits", "albedo_table"):
+        a, b = getattr(ga, f), getattr(gb, f)
+        assert float((a - b).norm() / b.norm()) <= 1e-4, f
+    assert float((ia - ib).abs().max()) <= 1e-5
+
+
+def test_dof_frame_kernels_match_plain(cuda):
+    """A thin-lens media frame (use_dof, focused at 1.5, lens radius 3)."""
+    scene, cfg = media_path(128, 64, bounces=3)
+    cam = dataclasses.replace(scene.camera, focal_distance=torch.tensor(1.5),
+                              defocus_jitter=torch.tensor(3.0))
+    scene = dataclasses.replace(scene, camera=cam).to(cuda)
+    cfg = dataclasses.replace(cfg, use_dof=True)
+    (img,) = _kernels_vs_plain(lambda: (integrator.render_tiled(scene, cfg, make_key(0), 1, 1),))
+    assert 0.01 < float(img.mean()) < 10.0
 
 
 def _probe_inputs(rng, b, dev):

@@ -16,6 +16,10 @@ class RenderConfig:
     # (static-camera temporal reuse, render/reproject.py)
     mode: str = "path"
     max_bounces: int = 14
+    # thin-lens depth of field in path mode (camera.h:68-101): the lens
+    # sample draws hash salt 101; the camera's focal_distance and
+    # defocus_jitter shape it
+    use_dof: bool = False
     aa_strength: float = 1.0  # renderer.h:183 antiAliasingStrength
     activate_sky: bool = True
     sky_fallback: tuple = (0.392, 0.584, 0.829)  # renderer.cpp:2312

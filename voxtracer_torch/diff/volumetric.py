@@ -115,6 +115,24 @@ class _CellFetch(torch.autograd.Function):
         return d_dens.index_add_(0, ci, ct[:, 0]), None, None
 
 
+def _rows(table, idx):
+    """Albedo rows ``table[clip(idx)]`` [N, C] under autograd (the JAX
+    package's ``_rows``): the row-lookup kernel on the card."""
+    return LookupRows.apply(table, idx.to(I32).contiguous())
+
+
+def _bsig_rows(bsig, idx):
+    """Per-brick mean sigma ``bsig[clip(idx)]`` [N] under autograd (the JAX
+    package's ``_bsig_rows``): the row-lookup kernel on a [K, 1] table."""
+    return LookupRows.apply(bsig[:, None], idx.to(I32).contiguous())[:, 0]
+
+
+def _cell_fetch(dens_flat, cell_tab, idx):
+    """[N, 2] cell rows (density, material id), the density's adjoint a 1-D
+    scatter (the JAX package's ``_cell_fetch``)."""
+    return _CellFetch.apply(dens_flat, cell_tab, idx)
+
+
 def _clip_cell(x, hi):
     """int32 cell index of float coordinates x, clipped to [0, hi]: the
     cast runs first and the clip catches whatever a cast of a huge or NaN
@@ -122,12 +140,41 @@ def _clip_cell(x, hi):
     return torch.minimum(torch.clamp(x.to(I32), min=0), hi)
 
 
+# World-to-object transforms.  Each rounds as its JAX counterpart does, so
+# that a sample on a cell face falls in the same cell in both packages:
+# ``_tr`` as the relaxed march's elementwise sums (each product and sum
+# rounded on its own), ``_object_rays`` as XLA's CPU dot rounds the
+# replay's ``einsum`` (a chain of fused multiply-adds).
+
 def _tr(row, x, point):
     """Row [V, 4] of a batch of transforms applied to x [N, 3] -> [V, N],
     summed in the order x, y, z (+ translation)."""
     c = row[:, None, :]
     out = c[..., 0] * x[:, 0] + c[..., 1] * x[:, 1] + c[..., 2] * x[:, 2]
     return out + c[..., 3] if point else out
+
+
+def _mat3(m, x):
+    """[V, 3, 3] matrices times [N, 3] vectors -> [V, N, 3], rounded as
+    XLA's CPU dot rounds ``einsum("vij,nj->vni")``: m_i2 x_2 + (m_i1 x_1 +
+    m_i0 x_0), each step a fused multiply-add rounded once.  A product of
+    two floats is exact in float64, so each step is one float64 add
+    rounded to float32."""
+    md = m.double()[:, None]          # [V, 1, 3, 3]
+    xd = x.double()[None, :, None]    # [1, N, 1, 3]
+    acc = (md[..., 0] * xd[..., 0]).to(F32)
+    for j in (1, 2):
+        acc = (md[..., j] * xd[..., j] + acc.double()).to(F32)
+    return acc
+
+
+def _object_rays(scene: Scene, o, d):
+    """World [N, 3] rays -> per-volume object space ([V, N, 3], [V, N, 3])
+    for the replay's segment marches.  The t parameter is shared (affine
+    instance transforms keep t linear), so segment bounds in world t apply
+    per volume."""
+    inv = scene.volumes.inv
+    return _mat3(inv[:, :3, :3], o) + inv[:, :3, 3][:, None], _mat3(inv[:, :3, :3], d)
 
 
 def _occupied_spans(scene: Scene, vox, voy, voz, vdx, vdy, vdz):

@@ -1014,13 +1014,18 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
 
 def _sample_pixels(scene: Scene, cfg: RenderConfig, key, px, py):
     """One sample for the given pixel coordinates -> radiance [N, 3].
-    Primary and whitted rays go through the pixel corner, unjittered."""
+    Primary and whitted rays go through the pixel corner, unjittered and
+    through a pinhole; path rays are jittered and, with cfg.use_dof, take
+    a thin-lens sample."""
     n, dev = px.shape[0], px.device
+    lens = None
     if cfg.mode == "path":
         u = hash_uniform(key, 100, (n, 2), dev)
         px = px + u[:, 0] * cfg.aa_strength
         py = py + u[:, 1] * cfg.aa_strength
-    o, d = primary_rays(scene.camera, cfg.width, cfg.height, px, py)
+        if cfg.use_dof:
+            lens = hash_uniform(key, 101, (n, 2), dev)
+    o, d = primary_rays(scene.camera, cfg.width, cfg.height, px, py, lens)
     o = o.contiguous()
     if cfg.mode == "primary":
         rec = find_nearest_world(scene, o, d, torch.ones(n, dtype=torch.bool, device=dev))

@@ -10,7 +10,9 @@ across as ``tree["volumes"]["pages"]``, one dict per page in walk order
 with its ``vol_off`` and its arrays (of which ``gridsize`` gives the page
 its length): the port cuts the same pages out of its own arrays, so both
 packages page alike.  ``diff_params_from_numpy`` does the same for the
-JAX ``DiffParams``.
+JAX ``DiffParams``, and ``replay_pre_from_numpy`` for the JAX
+``replay_precompute`` dict, so both packages' active replays can march
+the very same frozen segments.
 """
 
 from __future__ import annotations
@@ -61,3 +63,19 @@ def diff_params_from_numpy(tree: dict, device="cuda") -> DiffParams:
     """tree: {"density_logits": [V, G, G, G], "albedo_table": [256, 3]}."""
     return DiffParams(density_logits=_tensor(tree["density_logits"], device),
                       albedo_table=_tensor(tree["albedo_table"], device))
+
+
+def replay_pre_from_numpy(tree, device="cuda"):
+    """The JAX package's ``replay_precompute`` dict, its leaves numpy (as
+    ``jax.tree.map(np.asarray, pre)`` gives them), as the port's
+    ``diff.replay_active`` takes it: arrays become tensors on `device`,
+    0-d integer arrays (counts, bin bounds, march kinds) Python ints, and
+    the nesting (dicts, lists of marches, bin and light tuples) stays."""
+    if isinstance(tree, dict):
+        return {k: replay_pre_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replay_pre_from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    if a.ndim == 0 and a.dtype.kind in "iub":
+        return int(a)
+    return _tensor(a, device)

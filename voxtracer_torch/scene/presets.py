@@ -57,10 +57,11 @@ def monu_like_specs(gridsize=64, seeds=(1, 2, 3)) -> list:
     return specs
 
 
-def monu_like_path(width=1920, height=1080, gridsize=64, bounces=4):
+def monu_like_path(width=1920, height=1080, gridsize=64, bounces=4, seeds=(1, 2, 3)):
     """The bench scene without assets: monu's light and camera
-    (presets.py:105-106), the procedural sky, 4-bounce path tracing."""
-    vols = build_volumes(monu_like_specs(gridsize))
+    (presets.py:105-106), the procedural sky, 4-bounce path tracing.
+    seeds: one noise model per seed (monu_path's `which`)."""
+    vols = build_volumes(monu_like_specs(gridsize, seeds))
     lights = make_lights(point=((0.0, 3.0, -2.0, 6.0, 6.0, 6.0),))
     cam = make_camera(pos=(0.1, 1.1, -2.6), target=(0.2, 0.5, 0.5),
                       aspect=width / height)
