@@ -41,7 +41,19 @@ drives the port's two halves of the main path through its entry points:
   on the media scene and glassbox at 256x256;
 * the thin-lens frame: the 1080p path frame autofocused on the centre
   pixel with use_dof (cli render --dof's set-up), timed beside the
-  pinhole frame.
+  pinhole frame;
+* ``.vox`` loading, the asset presets and the game (``asset_phases``), on
+  stand-in .vox files (``write_standin_assets``, seed 0, in a temporary
+  directory): every file through the numpy and the native parser, held
+  equal; the five asset presets at their own sizes (teapot_primary 256^2
+  at 128^3, room_whitted 512^2 at depth 5 and with glass at depth 3,
+  monu_path, city_path and city_xl_path at 1080p) through ``render``,
+  counted, timed and held to the plain versions (the 1080p ones at a
+  smaller size), with K1-K3 on every call of the roomGlass frame; the
+  game at 256x212 with 6 bounces and the light kill: cli play's loop
+  for 8 steps of real probes, then the scripted progression through
+  chunks 1-3 with a frame per chunk held to the plain versions, and the
+  lit and dark light-kill scenes.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -123,6 +135,135 @@ WALK_OPS = dict(entries=120, walks=146, rows=12, descends=54, cells=41, bricks=1
 # least that tells whether a ray may enter a volume: six subtract-multiply
 # pairs, a min and a max per axis, four to combine them, two compares
 BOX_OPS = 24
+
+
+# ---- stand-in .vox files: what the asset presets and the game load, made
+# from a seed (the MagicaVoxel files are not in the repository)
+
+# file -> (size x, y, z; vox z is up), chunks besides SIZE/XYZI/RGBA
+STANDIN_FILES = {
+    "teapot.vox": ((126, 80, 61), ()),           # the real teapot's size
+    "room.vox": ((120, 120, 90), ()),
+    "roomGlass.vox": ((120, 120, 90), ()),
+    "monu1.vox": ((48, 48, 64), ("nTRN",)),      # scene-graph chunks to skip
+    "monu2.vox": ((64, 40, 60), ()),
+    "monu3.vox": ((72, 50, 64), ()),             # wider than 64: downscaled
+    "SmallBuilding01.vox": ((40, 40, 50), ()),
+    "SmallBuilding02.vox": ((48, 36, 40), ("IMAP",)),
+    "TallBuilding01.vox": ((80, 80, 120), ()),   # wider than 64: downscaled
+    "player.vox": ((16, 16, 16), ()),
+    "Text.vox": ((40, 6, 12), ("nTRN",)),
+    "textWin.vox": ((60, 6, 14), ()),
+}
+
+
+def _vox_bytes(size, vox, palette, imap=None, graph=False):
+    """A MagicaVoxel file: MAIN with SIZE, XYZI, optional scene-graph
+    chunks (nTRN, nGRP, nSHP), RGBA and optional IMAP."""
+    import struct
+
+    import numpy as np
+
+    def chunk(cid, content, children=b""):
+        return cid + struct.pack("<ii", len(content), len(children)) + content + children
+
+    kids = chunk(b"SIZE", struct.pack("<iii", *size))
+    kids += chunk(b"XYZI", struct.pack("<i", len(vox)) + np.asarray(vox, np.uint8).tobytes())
+    if graph:  # a transform node, a group and a shape: metadata the parsers skip
+        kids += chunk(b"nTRN", struct.pack("<iiiiii", 0, 0, 1, -1, 0, 1) + struct.pack("<i", 0))
+        kids += chunk(b"nGRP", struct.pack("<iii", 1, 0, 1) + struct.pack("<i", 2))
+        kids += chunk(b"nSHP", struct.pack("<iiiii", 2, 0, 1, 0, 0))
+    kids += chunk(b"RGBA", np.asarray(palette, np.uint8).tobytes())
+    if imap is not None:
+        kids += chunk(b"IMAP", np.asarray(imap, np.uint8).tobytes())
+    return b"VOX " + struct.pack("<i", 150) + chunk(b"MAIN", b"", kids)
+
+
+def _standin_grid(name, size, rng):
+    """A model's voxel colour indices, uint8 [x, y, z] (0 empty)."""
+    import numpy as np
+
+    sx, sy, sz = size
+    x, y, z = np.meshgrid(np.arange(sx), np.arange(sy), np.arange(sz), indexing="ij")
+    g = np.zeros(size, np.uint8)
+    pad = rng.integers(16, 255, size).astype(np.uint8)  # pad materials: palette colours
+    if name == "teapot.vox":  # body, lid knob, spout and handle
+        body = ((x - 63) / 42.0) ** 2 + ((y - 40) / 34.0) ** 2 + ((z - 24) / 22.0) ** 2 <= 1.0
+        knob = ((x - 63) ** 2 + (y - 40) ** 2 <= 36) & (z >= 44) & (z < 52)
+        spout = (np.abs(y - 40) <= 4) & (np.abs((z - 20) - 0.9 * (x - 100)) <= 4) & (x >= 96)
+        handle = (np.abs(y - 40) <= 3) & (np.abs(np.hypot(x - 20, z - 26) - 11) <= 3) & (x < 24)
+        g[body | knob | spout | handle] = 17 + (z[body | knob | spout | handle] // 8)
+    elif name in ("room.vox", "roomGlass.vox"):  # glass floor, walls, a mirror, boxes
+        wall = (x < 3) | (y < 3) | (x >= sx - 3) | (y >= sy - 3)
+        g[wall] = pad[wall]
+        g[(x < 3) & (y > 30) & (y < 90) & (z > 20) & (z < 70)] = 7       # mirror
+        g[z < 3] = 8                                                    # glass floor
+        for i, (cx, cy, m) in enumerate(((60, 60, 1), (85, 40, 5), (40, 85, 3))):
+            g[(np.abs(x - cx) < 10) & (np.abs(y - cy) < 10) & (z >= 3) & (z < 20 + 8 * i)] = m
+        if name == "roomGlass.vox":
+            g[((x - 70) ** 2 + (y - 75) ** 2 + (z - 30) ** 2) < 144] = 8  # a glass ball
+    elif name.startswith("monu"):  # a stepped base, a shaft with noise, a cap
+        cx, cy = sx // 2, sy // 2
+        r = np.maximum(np.abs(x - cx), np.abs(y - cy))
+        step = r <= np.maximum(sx, sy) // 2 - 2 - z // 4
+        shaft = (r <= sx // 6) & (rng.random(size) < 0.9)
+        cap = (z >= sz - 8) & (r <= sx // 4)
+        solid = (step & (z < sz // 4)) | shaft | cap
+        g[solid] = 20 + (z[solid] * 3) // sz + 10 * int(name[4])
+    elif "Building" in name:  # a shell with windows and a roof
+        shell = ((x == 1) | (y == 1) | (x == sx - 2) | (y == sy - 2)) & (x >= 1) & (y >= 1) \
+            & (x <= sx - 2) & (y <= sy - 2) & (z < sz - 4)
+        windows = (z % 6 >= 2) & (z % 6 < 4) & ((x + y) % 5 < 2)
+        roof = (z >= sz - 4) & (z < sz - 2) & (x >= 1) & (y >= 1) & (x <= sx - 2) & (y <= sy - 2)
+        g[shell & ~windows] = 40 + (x[shell & ~windows] + y[shell & ~windows]) % 12
+        g[shell & windows] = 7
+        g[roof] = pad[roof]
+    elif name == "player.vox":  # a cube with a SMOKE_PLAYER core showing on one face
+        g[2:14, 2:14, 2:14] = 24
+        g[4:12, 4:12, 4:14] = 14
+    else:  # Text / textWin: letter strokes
+        stroke = (x % 8 < 5) & ((z % 6 < 2) | (x % 8 < 2)) & (y >= 1) & (y < sy - 1)
+        g[stroke] = 30
+    return g
+
+
+def write_standin_assets(directory, seed):
+    """Write a stand-in for every .vox file the asset presets and the game
+    load (STANDIN_FILES) into `directory`, from numpy's default_rng(seed):
+    teapot.vox at the real model's 126x80x61; room.vox and roomGlass.vox
+    with a GLASS (palette index 8) floor, a mirror (7) and boxes;
+    monu1-3.vox, SmallBuilding01/02.vox and TallBuilding01.vox (monu3 and
+    TallBuilding01 wider than 64, so grid_from_vox downscales them at
+    gridsize 64); player.vox with a SMOKE_PLAYER (14) core; Text.vox and
+    textWin.vox.  Palettes are random colours; SmallBuilding02.vox carries
+    an IMAP chunk and monu1.vox and Text.vox scene-graph chunks.  The
+    directory is made if missing.  -> the paths written."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for name, (size, extra) in STANDIN_FILES.items():
+        g = _standin_grid(name, size, rng)
+        xs, ys, zs = np.nonzero(g)
+        vox = np.stack([xs, ys, zs, g[xs, ys, zs]], axis=1).astype(np.uint8)
+        palette = rng.integers(40, 256, (256, 4)).astype(np.uint8)
+        palette[:, 3] = 255
+        palette[13] = (255, 200, 230, 255)  # colour index 14 (SMOKE_PLAYER): bright
+        imap = None
+        if "IMAP" in extra:
+            # a display order: MagicaVoxel's identity order (1, 2, ..., 255,
+            # 0) with colours 17..255 shuffled; 0 stays last, so empty
+            # cells stay empty
+            imap = ((np.arange(256) + 1) & 0xFF).astype(np.uint8)
+            imap[16:255] = rng.permutation(imap[16:255])
+        path = os.path.join(directory, name)
+        with open(path, "wb") as f:
+            f.write(_vox_bytes(size, vox, palette, imap, graph="nTRN" in extra))
+        paths.append(path)
+    return paths
 
 
 _T0 = time.perf_counter()
@@ -939,6 +1080,241 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
         f"mean {float(dimg.mean()):.4f}; launches {launched}; in turns pinhole, DOF, DOF, pinhole: "
         + ", ".join(f"{ms:.1f} ms" for ms in turns) + f" ({smi}); kernels vs plain: "
         f"{frac:.4%} of pixels off by more than 1e-3 (max {dmax:.3g})")
+    return paths
+
+
+def asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results):
+    """Phases [22]-[24]: the .vox ingest, the five asset presets and the
+    game, all on stand-in .vox files (``write_standin_assets``, seed 0) in
+    a temporary directory, with main's helpers (``smi`` is the log lines'
+    card suffix; ``results`` the kernels' JSON entries) -> {path: launch
+    counts}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from voxtracer_torch import cli, native
+    from voxtracer_torch.config import RenderConfig
+    from voxtracer_torch.core.rng import fold_in
+    from voxtracer_torch.core.types import SMOKE_PLAYER
+    from voxtracer_torch.game.level import Game
+    from voxtracer_torch.io import vox
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.scene import presets
+    from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
+    from voxtracer_torch.scene.lights import make_lights
+    from voxtracer_torch.scene.materials import default_materials
+    from voxtracer_torch.scene.volume import solid_grid
+
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    kept_dir = presets.ASSET_DIR
+    try:
+        # ---- 22. the stand-ins, parsed by the numpy and the native parser
+        t0 = time.perf_counter()
+        files = write_standin_assets(tmp.name, 0)
+        log(f"[22] {len(files)} stand-in .vox files written in {time.perf_counter() - t0:.2f} s")
+        check(native.available(), "the native .vox parser did not build")
+        for path in files:
+            data = open(path, "rb").read()
+            (want,) = vox.parse_vox(data)[:1]
+            grid, pal = native.parse_vox_native(data)
+            check(np.array_equal(grid, want.grid) and np.array_equal(pal, want.palette),
+                  f"{os.path.basename(path)}: the native parser differs from the numpy one")
+        big = max(files, key=os.path.getsize)
+        data = open(big, "rb").read()
+        secs = {}
+        for name, fn in (("numpy", lambda: vox.parse_vox(data)),
+                         ("native", lambda: native.parse_vox_native(data))):
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            secs[name] = min(ts)
+        parser = vox.load_vox_with_parser(big)[1]
+        log(f"[22] every stand-in equal through both parsers; load_vox uses the {parser} "
+            f"parser; {os.path.basename(big)} ({len(data)} bytes): numpy {secs['numpy']:.4f} s, "
+            f"native {secs['native']:.4f} s (the fastest of 5)")
+
+        # ---- 23. the asset presets at their own sizes: the frame cli render
+        # draws (render, scanline order), counted, timed, and against the
+        # plain versions: the teapot and the rooms at full size; the 1080p
+        # presets at 480x270 (a plain 1080p frame takes about 30 s), and
+        # city_xl_path at 256x128, below the ray count from which "auto"
+        # reorders its paged bounces (a reordered frame draws other samples
+        # where one ulp moves a ray across a sort cell: [17])
+        presets.ASSET_DIR = tmp.name
+        cases = (("teapot_primary 256^2, 128^3", presets.teapot_primary, {}, None),
+                 ("room_whitted 512^2, depth 5", presets.room_whitted, {}, None),
+                 ("room_whitted glass 512^2, depth 3", presets.room_whitted,
+                  dict(glass=True), None),
+                 ("monu_path 1080p, 4 bounces", presets.monu_path, {}, (480, 270)),
+                 ("city_path 1080p, 4 bounces", presets.city_path, {}, (480, 270)),
+                 ("city_xl_path 1080p, 4 bounces", presets.city_xl_path, {}, (256, 128)))
+        glass_calls = []
+        for what, build, kw, small in cases:
+            t0 = time.perf_counter()
+            scene, cfg = build(**kw)
+            built = time.perf_counter() - t0
+            scene = scene.to(dev)
+            vols = scene.volumes
+            reset_counts()
+            img = integrator.render(scene, cfg, key)
+            torch.cuda.synchronize()
+            c = counts()
+            need = ["traverse_nearest"] + (["traverse_occluded", "lookup_rows"]
+                                           if cfg.mode != "primary" else [])
+            need += ["exit_march"] if "room" in what else []
+            for kk in need:
+                check(c[kk] > 0, f"{kk} not launched by the {what} frame")
+            mean = float(img.mean())
+            check(tuple(img.shape) == (cfg.height, cfg.width, 3), f"{what}: {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all()) and 0.0 < mean < 50.0, f"{what}: mean {mean}")
+            paths[f"{what.split(',')[0]} frame"] = c
+            med, lo, spread, times = host_times(lambda: integrator.render(scene, cfg,
+                                                                          fold_in(key, 1)))
+            scfg = cfg if small is None else dataclasses.replace(cfg, width=small[0],
+                                                                 height=small[1])
+            a = integrator.render(scene, scfg, key)
+            t0 = time.perf_counter()
+            with plain_versions():
+                b = integrator.render(scene, scfg, key)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            frac, dmax = pixels_off(a, b)
+            log(f"[23] {what} (stand-ins): {vols.n} volumes"
+                + (f" in {len(vols.pages)} pages" if vols.pages else "")
+                + f", built in {built:.1f} s; mean {mean:.4f}; median {med:.1f} ms, min "
+                f"{lo:.1f} ms, spread {spread:.1f} ms ({smi}); reps {times}; launches {c}; "
+                f"kernels vs plain at {scfg.width}x{scfg.height}: max diff {dmax:.3g}, "
+                f"{frac:.4%} of pixels off by more than 1e-3, plain frame {plain_s:.1f} s")
+            if kw.get("glass"):
+                with captured_traversals(glass_calls):
+                    integrator.render(scene, cfg, key)
+                torch.cuda.synchronize()
+            del scene, img, a, b
+
+        # K1, K2 and K3 on every call of the roomGlass frame: one 128^3 glass
+        # floor under the exit march; K1 and K2 held to the plain walk on
+        # their first call, K3 on every call
+        log(f"[23] K1, K2 and K3 on the {len(glass_calls)} calls of the roomGlass 512^2 frame:")
+        seen = {}
+        for mode, args in glass_calls:
+            i = seen[mode] = seen.get(mode, -1) + 1
+            kname = dict(nearest="K1", occluded="K2", exit="K3")[mode]
+            label = f"roomGlass 512^2 frame, {kname} call {i}"
+            if mode == "exit":
+                tally = {}
+                k = traverse.exit_march(*args)
+                err = same_exit(k, traverse.exit_march_plain(*args, tally=tally), args[7], label)
+                bnd = exit_bound(args, k, tally)
+                kern = per_launch(lambda: traverse.exit_march(*args))
+                floor = per_launch(lambda: traverse.launch_floor(args[5].shape[0], dev))
+                nr, na = args[5].shape[0], int(args[7].sum())
+                log(f"    {label}: {nr} rays, {na} march, {int(k['in_vol'].sum())} leave inside "
+                    f"the grid; kernel {kern[0]:.4f} ms ({kern[1]:.1f} us host) = "
+                    f"{bnd[0] / kern[0]:.0%} of bound {bnd[0]:.4f} ms ({bnd[1]}), launch floor "
+                    f"{floor[0]:.4f} ms ({smi})")
+                entry = dict(call=label, rays=nr, active=na, ms=kern[0], host_us=kern[1],
+                             bound_ms=bnd[0], bound_by=bnd[1], share=bnd[0] / kern[0],
+                             floor_ms=floor[0], max_abs_err=err)
+                rname = "exit_march"
+            elif i == 0:
+                entry = time_traversal(label, mode, args, plain_too=True, with_base=False)[0]
+                rname = f"traverse_{mode}"
+            else:
+                kern = per_launch(lambda: traverse.traverse(*args, mode=mode))
+                nr, na = args[5].shape[0], int(args[8].sum())
+                log(f"    {label}: {nr} rays, {na} active; kernel {kern[0]:.4f} ms "
+                    f"({kern[1]:.1f} us host) ({smi})")
+                entry = dict(call=label, rays=nr, active=na, ms=kern[0], host_us=kern[1])
+                rname = f"traverse_{mode}"
+            entry["path"] = "roomGlass 512^2 frame"
+            next(r for r in results if r["name"] == rname).setdefault("calls", []).append(entry)
+        del glass_calls
+
+        # ---- 24. the game at 256x212 (the reference's fixed resolution),
+        # cli play's 6 bounces with the light kill on: cmd_play's loop for 8
+        # steps of real probes, then tests/test_game.py's scripted
+        # progression through chunks 1-3; a frame per chunk counted, timed
+        # and against the plain versions
+        game = Game(seed=0, asset_dir=tmp.name)
+        gcfg = RenderConfig(width=256, height=212, mode="path", max_bounces=6,
+                            detect_light_kill=True)
+        times = []
+        reset_counts()
+        steps = cli.play_steps(game, gcfg, ["w"] * 8, dev, times)
+        torch.cuda.synchronize()
+        c = counts()
+        check(steps == 8 and all(p is not None for p, _ in times), f"cli play: {times}")
+        for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+            check(c[kk] > 0, f"{kk} not launched by cli play's loop")
+        paths["game, cli play 8 steps"] = c
+        probe_ms = [p for p, _ in times]
+        log(f"[24] cli play's loop, 8 steps at 256x212 (stand-ins): player at "
+            f"{tuple(round(float(x), 3) for x in game.volumes[0].position)}, chunk "
+            f"{game.state.current_chunk}; probe ms {[round(p, 2) for p in probe_ms]} (median "
+            f"{statistics.median(probe_ms):.2f}); frame ms {[round(f, 1) for _, f in times]} "
+            f"({smi}); launches {c}")
+
+        def fake_probe(o, d, dist):
+            point = np.array([0.0, 0.0, game.state.trigger_checkpoint - 1.0], np.float32)
+            return 1, 1.0, point, np.array([0.0, 1.0, 0.0], np.float32)
+
+        gkey = fold_in(key, 24)
+        for chunk in range(4):
+            if chunk:
+                game.tick(0.016, "w", fake_probe)
+                check(game.state.current_chunk == chunk, f"chunk {game.state.current_chunk}")
+            scene = game.build_scene(gcfg.width, gcfg.height, dev)
+            reset_counts()
+            img, lit = integrator.render_game_frame(scene, gcfg, gkey)
+            torch.cuda.synchronize()
+            c = counts()
+            for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+                check(c[kk] > 0, f"{kk} not launched by the chunk {chunk} game frame")
+            check(bool(torch.isfinite(img).all()), f"chunk {chunk} frame has non-finite values")
+            paths[f"game frame, chunk {chunk}"] = c
+            med, lo, spread, ftimes = host_times(
+                lambda: integrator.render_game_frame(scene, gcfg, fold_in(gkey, 1)))
+            with plain_versions():
+                pimg, plit = integrator.render_game_frame(scene, gcfg, gkey)
+            frac, dmax = pixels_off(img, pimg)
+            check(bool(lit) == bool(plit), f"chunk {chunk}: light-kill flags differ")
+            log(f"[24] game chunk {chunk}: {scene.volumes.n} volumes, "
+                f"{scene.triangles.v0.shape[0]} triangles, {scene.spheres.radius.shape[0]} "
+                f"spheres, {scene.lights.n_spot} spot and {scene.lights.n_area} area lights; "
+                f"mean {float(img.mean()):.4f}, light kill {bool(lit)}; median {med:.1f} ms, "
+                f"min {lo:.1f} ms, spread {spread:.1f} ms ({smi}); reps {ftimes}; launches {c}; "
+                f"kernels vs plain: max diff {dmax:.3g}, {frac:.4%} of pixels off by more than "
+                f"1e-3, flags equal")
+        check(game.volumes[-1].gridsize == 32 and game.state.current_chunk == 3, "no win text")
+        check(sum(c.get("exit_march", 0) for p_, c in paths.items() if "chunk" in p_) > 0,
+              "exit_march not launched by the game's frames")
+
+        # the lit and the dark case of tests/test_game.py:118-156
+        vols = build_volumes([VolumeSpec(position=(0, 0, 0), gridsize=4,
+                                         grid=solid_grid(4, SMOKE_PLAYER))])
+        mats = default_materials()
+        mats.albedo[SMOKE_PLAYER] = torch.tensor([1.0, 0.7, 1.0])
+        lcfg = RenderConfig(width=16, height=16, mode="path", max_bounces=2,
+                            detect_light_kill=True, activate_sky=False)
+        flags = {}
+        for name, col in (("lit", 500.0), ("dark", 1e-4)):
+            sc = presets._assemble(vols, mats, make_lights(point=((0.0, 0.0, -1.2, col, col,
+                                                                   col),))).to(dev)
+            lit = bool(integrator.render_game_frame(sc, lcfg, key)[1])
+            with plain_versions():
+                plit = bool(integrator.render_game_frame(sc, lcfg, key)[1])
+            check(lit == plit == (name == "lit"), f"{name} scene: light kill {lit} / {plit}")
+            flags[name] = lit
+        log(f"[24] light kill on the card: {flags} (kernels and plain versions agree)")
+    finally:
+        presets.ASSET_DIR = kept_dir
+        tmp.cleanup()
     return paths
 
 
@@ -1870,12 +2246,16 @@ def main(argv=None) -> int:
     replay_paths = replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal,
                                  measure, bwd_err, results)
 
+    # ---- 22-24. .vox loading, the asset presets and the game, on stand-ins
+    asset_paths = asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results)
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
-             "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths}
+             "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths,
+             **asset_paths}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:

@@ -15,6 +15,7 @@ absolute difference <= 1e-4, at most 1% of pixels off by more than 1e-3);
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +73,7 @@ def test_accumulate_matches_jax(frames):
 def test_progressive_state_is_the_running_mean():
     rng = np.random.default_rng(3)
     frames = [rng.uniform(0.0, 2.0, (4, 5, 3)).astype(np.float32) for _ in range(4)]
-    prog = accumulate.ProgressiveState(4, 5)
+    prog = accumulate.ProgressiveState(4, 5, device="cpu")
     jprog = jax_accumulate.ProgressiveState(4, 5)
     for f in frames:
         got = prog.add(torch.from_numpy(f))
@@ -82,3 +83,13 @@ def test_progressive_state_is_the_running_mean():
     np.testing.assert_allclose(got.numpy(), np.mean(frames, axis=0), rtol=1e-5, atol=1e-6)
     prog.reset()
     assert prog.frames == 0 and not bool(prog.acc.any())
+
+
+def test_progressive_state_defaults_to_the_card():
+    """An entry point's state lives on the card unless the caller asks for
+    the CPU, as scene_from_numpy's scenes do."""
+    assert inspect.signature(accumulate.ProgressiveState).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            accumulate.ProgressiveState(2, 2)
+    assert accumulate.ProgressiveState(2, 2, device="cpu").acc.device.type == "cpu"

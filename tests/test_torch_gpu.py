@@ -29,8 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import plain_traversal, plain_versions, same_exit
-from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY
+from chip_smoke import plain_traversal, plain_versions, same_exit, write_standin_assets
+from voxtracer_torch.config import RenderConfig
+from voxtracer_torch.game.level import Game
+from voxtracer_torch.scene.lights import make_lights
+from voxtracer_torch.scene.materials import default_materials
+from voxtracer_torch.scene.presets import _assemble
+from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY, SMOKE_PLAYER
 from voxtracer_torch.diff import train, volumetric
 from voxtracer_torch.kernels import lookup, probes, traverse
 from voxtracer_torch.kernels.dda import BIG
@@ -760,6 +765,80 @@ def test_dof_frame_kernels_match_plain(cuda):
     cfg = dataclasses.replace(cfg, use_dof=True)
     (img,) = _kernels_vs_plain(lambda: (integrator.render_tiled(scene, cfg, make_key(0), 1, 1),))
     assert 0.01 < float(img.mean()) < 10.0
+
+
+@pytest.fixture(scope="module")
+def standins(tmp_path_factory):
+    """The stand-in .vox files of chip_smoke.write_standin_assets."""
+    d = tmp_path_factory.mktemp("vox")
+    write_standin_assets(str(d), 0)
+    return d
+
+
+def test_game_frame_kernels_match_plain(cuda, standins):
+    """render_game_frame of the game's first zone and of its second (area
+    light, emissive sphere, the monu2 copies), light kill on: images and
+    flags through the kernels and the plain versions agree."""
+    game = Game(seed=0, asset_dir=str(standins))
+    cfg = RenderConfig(width=128, height=106, mode="path", max_bounces=3,
+                       detect_light_kill=True)
+
+    def fake_probe(o, d, dist):
+        point = np.array([0.0, 0.0, game.state.trigger_checkpoint - 1.0], np.float32)
+        return 1, 1.0, point, np.array([0.0, 1.0, 0.0], np.float32)
+
+    for chunk in (0, 1):
+        if chunk:
+            game.tick(0.016, "w", fake_probe)
+        scene = game.build_scene(cfg.width, cfg.height, cuda)
+        (img,) = _kernels_vs_plain(
+            lambda: (integrator.render_game_frame(scene, cfg, make_key(chunk))[0],))
+        lit = integrator.render_game_frame(scene, cfg, make_key(chunk))[1]
+        with plain_versions():
+            plit = integrator.render_game_frame(scene, cfg, make_key(chunk))[1]
+        assert bool(lit) == bool(plit)
+        assert 0.01 < float(img.mean()) < 10.0
+
+
+@pytest.mark.parametrize("colour,flag", [(500.0, True), (1e-4, False)])
+def test_light_kill_flag_on_the_card(cuda, colour, flag):
+    """tests/test_game.py's lit and dark player-smoke scenes: the flag is
+    set exactly when the light is bright, through the kernels and the
+    plain versions."""
+    vols = build_volumes([VolumeSpec(position=(0, 0, 0), gridsize=4,
+                                     grid=np.full((4, 4, 4), SMOKE_PLAYER, np.uint8))])
+    mats = default_materials()
+    mats.albedo[SMOKE_PLAYER] = torch.tensor([1.0, 0.7, 1.0])
+    scene = _assemble(vols, mats, make_lights(point=((0.0, 0.0, -1.2) + (colour,) * 3,)))
+    scene = scene.to(cuda)
+    cfg = RenderConfig(width=16, height=16, mode="path", max_bounces=2,
+                       detect_light_kill=True, activate_sky=False)
+    assert bool(integrator.render_game_frame(scene, cfg, make_key(0))[1]) == flag
+    with plain_versions():
+        assert bool(integrator.render_game_frame(scene, cfg, make_key(0))[1]) == flag
+
+
+def test_skip_range_probe_on_the_card(cuda, standins):
+    """The game probe's plain-torch walk on CUDA tensors equals the same
+    walk on the CPU, ray for ray."""
+    game = Game(seed=0, asset_dir=str(standins))
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-3.0, 3.0, (512, 3)).astype(np.float32)
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = game.build_scene(64, 53, dev)
+        out.append(integrator.find_nearest_world(
+            scene, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            torch.ones(512, dtype=torch.bool, device=dev), skip_lo=9, skip_hi=14,
+            skip_first=True))
+    a, b = out
+    for f in ("hit", "vol", "mat"):
+        assert torch.equal(a[f].cpu(), b[f]), f
+    assert int(a["hit"].sum()) > 50
+    for f in ("t", "nx", "ny", "nz"):
+        assert torch.allclose(a[f].cpu(), b[f], rtol=1e-6, atol=1e-6), f
 
 
 def _probe_inputs(rng, b, dev):

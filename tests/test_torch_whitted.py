@@ -68,7 +68,8 @@ def _hold(got, want, bad=0.01, tol=1e-4, median=1e-6):
 
 def test_config_has_the_jax_fields():
     """The whitted and NEE fields of the JAX RenderConfig, with its defaults."""
-    for f in ("deterministic_lights", "whitted_cull_eps"):
+    for f in ("deterministic_lights", "whitted_cull_eps", "whitted_glass_split",
+              "detect_light_kill", "light_kill_threshold"):
         assert getattr(RenderConfig(), f) == getattr(JaxConfig(), f), f
 
 

@@ -31,6 +31,15 @@ class RenderConfig:
     # this; it would change its pixel by at most eps x its radiance.  0
     # keeps the whole branch tree.
     whitted_cull_eps: float = 1e-3
+    # whitted: trace the Fresnel split's reflected and refracted branches
+    # at glass and smoke hits; off, a dielectric hit ends its branch
+    whitted_glass_split: bool = True
+    # the game's light-kill test (renderer.cpp:1437-1450): a path ray that
+    # shades a SMOKE_PLAYER-class cell of volume 0 evaluates the direct
+    # light there, and a squared length above light_kill_threshold flags
+    # it; render_game_frame returns the frame's OR of the flags
+    detect_light_kill: bool = False
+    light_kill_threshold: float = 16.0
     # "tile": rays are generated in 8x128-pixel tiles so neighbouring
     # threads trace neighbouring pixels; "scanline": row-major.  Tile order
     # falls back to scanline when width % 128 != 0.

@@ -16,6 +16,7 @@ from voxtracer_torch.core.transforms import volume_transforms
 from voxtracer_torch.core.types import (GLASS, MAT_NONE, SMOKE_LOW_DENSITY,
                                         SMOKE_PLAYER, Spheres, Triangles,
                                         VoxVolumes)
+from voxtracer_torch.native import build_bricks_native
 from voxtracer_torch.scene.volume import empty_grid
 
 BRICK = 8
@@ -42,7 +43,12 @@ class VolumeSpec:
 
 def build_bricks(grid: np.ndarray, gridsize: int) -> np.ndarray:
     """Uniform-brick macro grid: the single cell value of each 8^3 brick
-    (clipped to the logical gridsize) if uniform, else BRICK_MIXED."""
+    (clipped to the logical gridsize) if uniform, else BRICK_MIXED.  The
+    C++ builder of native/voxio.cpp (bit-identical) runs where it builds,
+    as in the JAX package."""
+    out = build_bricks_native(grid, gridsize)
+    if out is not None:
+        return out
     m = max(1, -(-gridsize // BRICK))
     out = np.full((m, m, m), BRICK_MIXED, np.int32)
     for bx in range(m):

@@ -1,8 +1,10 @@
 """Default material bank (Renderer::MaterialSetUp, renderer.cpp:357-443;
 counterpart of voxtracer/scene/materials.py).  Slots 16..254 are pad
-materials, slot 255 is NONE."""
+materials, which the ``.vox`` palette mutates; slot 255 is NONE."""
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -41,3 +43,26 @@ def default_materials() -> Materials:
     t = torch.from_numpy
     return Materials(albedo=t(albedo), roughness=t(roughness),
                      emissive=t(emissive), ior=t(ior))
+
+
+def apply_palette_updates(materials: Materials, updates: dict[int, np.ndarray]) -> Materials:
+    """LoadModel's material-table mutation (scene.cpp:516-520): albedo from
+    the palette, roughness 1, in the dict's order (the last load wins)."""
+    albedo, roughness = materials.albedo.clone(), materials.roughness.clone()
+    for idx, rgb in updates.items():
+        albedo[idx] = torch.as_tensor(np.asarray(rgb, np.float32), device=albedo.device)
+        roughness[idx] = 1.0
+    return replace(materials, albedo=albedo, roughness=roughness)
+
+
+def randomize_smoke_colors(materials: Materials, rng: np.random.Generator) -> Materials:
+    """RandomizeSmokeColors (renderer.cpp:348-355): smoke rows 9-13 drawn
+    around (1, 0.7, 1) from rng, three draws a row in the JAX package's
+    order."""
+    albedo = materials.albedo.clone()
+    base = np.array([1.0, 0.7, 1.0], np.float32)
+    for i in range(9, 14):  # SMOKE_LOW..SMOKE_HIGH
+        row = base + np.array([rng.uniform(-0.2, 0.0), rng.uniform(-0.2, 0.2),
+                               rng.uniform(-0.1, 0.0)], np.float32)
+        albedo[i] = torch.from_numpy(row).to(albedo.device)
+    return replace(materials, albedo=albedo)
