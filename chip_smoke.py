@@ -53,7 +53,26 @@ drives the port's two halves of the main path through its entry points:
   game at 256x212 with 6 bounces and the light kill: cli play's loop
   for 8 steps of real probes, then the scripted progression through
   chunks 1-3 with a frame per chunk held to the plain versions, and the
-  lit and dark light-kill scenes.
+  lit and dark light-kill scenes;
+* the live viewer, the sharded paths and the scaling bench
+  (``live_dist_phases``, stand-ins again): [25] ``viewer.run_live``
+  headless at 256x212 on cli live's default preset (monu, path) and on
+  roomglass (whitted, K3 through the glass floor), scripts/viewer_fps.py's
+  script plus one material edit, frame times against the reference's
+  >5 fps bar, the terminal assembly, launches a frame, the accumulator of
+  a short script (a move, an edit) through the kernels against the plain
+  versions (0 pixels off by more than 1e-3) with each K1-K3 call of it
+  held to its plain version on the same inputs, and ``cli live --script
+  ..w. --no-display`` as a process; [26] ``dist.mesh.render_sharded`` of
+  the 1080p monu-like path frame and of glassbox whitted 512x512 on 1
+  rank (this process) and on 4 ranks spawned on the one card
+  (``dist.multihost.spawn``: gloo, every rank on the card), held equal
+  bit for bit, and each held to the same frame with every rank's share
+  through the plain versions; ``dist.train.train_demo``'s step on a
+  (2, 2) mesh against 1 rank (loss within 1e-5 relative, gradients within
+  relative L2 1e-4), and the 1-rank step through the kernels against the
+  plain versions to the same gate, with peak memory and launches per
+  rank; [27] ``bench.scaling.measure`` at 1080p on 1, 2 and 4 ranks.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -67,8 +86,8 @@ for K1 and K2 only the work the call needs at least: see
 the same function, where there is one.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
-1e-6; normals within 1e-5 (the kernel takes 1/sqrtf where the plain
-version takes torch.rsqrt); lookup rows and probe results identical; lookup backward per entry within 1e-5 * (sum of
+1e-6; normals within 1e-5 (the kernel takes rsqrtf, as the plain
+version's torch.rsqrt does on the card); lookup rows and probe results identical; lookup backward per entry within 1e-5 * (sum of
 |ct| over that entry's rows) + 1e-6 (the kernel adds in no fixed order;
 at the captured shapes the plan's accumulator is held to it and the
 other one's error is reported beside it); forward images (and the
@@ -1318,6 +1337,303 @@ def asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results):
     return paths
 
 
+LIVE_SIZE = (256, 212)  # the viewer's and cli live's size (camera.h:4-5)
+# scripts/viewer_fps.py's script (idle, one move, idle) with one material
+# edit; 24 frames
+LIVE_SCRIPT = [set()] * 8 + [{"w"}] + [set()] * 7 + [{"m"}] + [set()] * 7
+SHARD_RANKS = 4
+# the sharded step's size: the 1-rank dense step (16 march steps over 4
+# volumes) fits the card at 1080p
+STEP_SIZE = (1920, 1080)
+
+
+def _kernel_counts():
+    from voxtracer_torch.kernels import lookup, traverse
+
+    return dict(traverse.launches, **lookup.launches)
+
+
+def _reset_kernel_counts():
+    from voxtracer_torch.kernels import lookup, traverse
+
+    for c in (traverse.launches, lookup.launches):
+        for k in c:
+            c[k] = 0
+
+
+def sharded_frames_rank(frames, reps):
+    """One rank of [26]: each (label, preset name, preset kwargs) of
+    `frames` through render_sharded on this process's mesh -> {label:
+    launches, peak memory, host ms of `reps` frames after the counted one,
+    and (rank 0) the counted frame's image and the same frame under the
+    plain versions, every rank tracing its share plainly}."""
+    import torch
+
+    from voxtracer_torch.core.rng import fold_in, make_key
+    from voxtracer_torch.dist.mesh import make_mesh, render_sharded
+    from voxtracer_torch.scene import presets
+
+    mesh = make_mesh()
+    out = {}
+    for label, preset, kw in frames:
+        scene, cfg = getattr(presets, preset)(**kw)
+        scene = scene.to(mesh.device)
+        key = make_key(0)
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        _reset_kernel_counts()
+        img = render_sharded(scene, cfg, key, 1, mesh)
+        torch.cuda.synchronize(mesh.device)
+        counted = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        times = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            render_sharded(scene, cfg, fold_in(key, 1 + i), 1, mesh)
+            torch.cuda.synchronize(mesh.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        with plain_versions():
+            plain = render_sharded(scene, cfg, key, 1, mesh)
+        rank0 = mesh.index == 0
+        out[label] = dict(launches=counted, peak=peak, times=times, rank=mesh.index,
+                          image=img.cpu().numpy() if rank0 else None,
+                          plain=plain.cpu().numpy() if rank0 else None)
+        del scene, img, plain
+    return out
+
+
+def sharded_step_rank(width, height, n_steps, plain=False):
+    """One rank of [26]: one train_demo step of the monu-like scene at
+    width x height on this process's ('data', 'model') mesh, through the
+    kernels or (`plain`) the plain versions -> its mesh coordinates, the
+    loss, its gradients (density slab, albedo), launches, peak memory and
+    the step's host ms."""
+    import torch
+
+    from voxtracer_torch.dist.train import make_mesh_2d, train_demo
+    from voxtracer_torch.scene.presets import monu_like_path
+
+    mesh = make_mesh_2d()
+    scene, cfg = monu_like_path(width, height, bounces=4)
+    scene = scene.to(mesh.device)
+    target = torch.zeros((height, width, 3), device=mesh.device)
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    with plain_versions() if plain else contextlib.nullcontext():
+        params, loss = train_demo(scene, cfg, target, mesh, iters=1, n_steps=n_steps)
+    torch.cuda.synchronize(mesh.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(shape=mesh.shape, coords=mesh.coords, loss=loss, ms=ms,
+                grad_density=params.density_logits.grad.cpu().numpy(),
+                grad_albedo=params.albedo_table.grad.cpu().numpy(),
+                launches=_kernel_counts(), peak=torch.cuda.max_memory_allocated(mesh.device))
+
+
+def live_dist_phases(dev, key, smi, reset_counts, counts):
+    """Phases [25]-[27]: the live viewer on stand-in .vox files, the
+    ray-sharded frames and train step over torch.distributed (4 ranks on
+    the one card), and the scaling bench -> {path: launch counts}."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from voxtracer_torch.bench import scaling
+    from voxtracer_torch.dist import multihost
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.scene import presets
+    from voxtracer_torch.viewer import LiveSession, TermDisplay, run_live
+
+    paths = {}
+    tmp = tempfile.TemporaryDirectory()
+    kept_dir, kept_env = presets.ASSET_DIR, os.environ.get("VOX_ASSETS")
+    try:
+        write_standin_assets(tmp.name, 0)
+        presets.ASSET_DIR = os.environ["VOX_ASSETS"] = tmp.name
+        w, h = LIVE_SIZE
+
+        # ---- 25. the live viewer, headless, at 256x212: cli live's default
+        # preset (monu, path, 4 bounces) and roomglass (whitted: K3 through
+        # the glass floor), each built at its own size as cli live builds it
+        disp = TermDisplay(out=io.StringIO())
+        for name in ("monu", "roomglass"):
+            scene, cfg = presets.PRESETS[name]()
+            cfg = dataclasses.replace(cfg, width=w, height=h)
+            scene = scene.to(dev)
+            reset_counts()
+            frames, report = run_live(scene, cfg, script=LIVE_SCRIPT, display=False)
+            torch.cuda.synchronize()
+            c = counts()
+            need = ["traverse_nearest", "traverse_occluded", "lookup_rows"]
+            need += ["exit_march"] if cfg.mode == "whitted" else []
+            for kk in need:
+                check(c[kk] > 0, f"{kk} not launched by the live {name} frames")
+            check(frames == len(LIVE_SCRIPT), f"live {name}: {frames} frames")
+            paths[f"live {name} {w}x{h}, {frames} frames"] = c
+            ms = [t * 1e3 for t in report.times[1:]]  # frame 0 loads the kernels' tables
+            med = statistics.median(ms)
+            # the terminal assembly of one frame (no device)
+            rgb = np.random.default_rng(0).integers(0, 256, (h, w, 3)).astype(np.uint8)
+            ansi = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                disp.show(rgb, "status")
+                ansi.append((time.perf_counter() - t0) * 1e3)
+            ansi_ms = statistics.median(ansi)
+            per_frame = {k: v / frames for k, v in c.items() if v}
+            log(f"[25] live {name} {w}x{h} ({cfg.mode}, {cfg.max_bounces} bounces, "
+                f"{scene.volumes.n} volumes), {frames} frames (idle, a move, idle, an edit, "
+                f"idle): frame ms median {med:.1f}, min {min(ms):.1f}, spread "
+                f"{max(ms) - min(ms):.1f} (frames 1-{frames - 1}); TermDisplay assembly "
+                f"{ansi_ms:.2f} ms; {1e3 / (med + ansi_ms):.1f} fps end to end against the "
+                f"reference's >5 fps bar ({smi}); launches a frame {per_frame}")
+            # the final accumulator and image of a short script (a move and
+            # an edit) through the kernels and through the plain versions
+            short = [set(), {"w"}, set(), {"m"}, set()]
+            got, calls = [], []
+            for plain in (False, True):
+                live = LiveSession(scene, cfg)
+                with (plain_versions() if plain else captured_traversals(calls)):
+                    for keys in short:
+                        rgb8 = live.frame(keys, 33.0)
+                got.append((live.acc, rgb8))
+            # every K1, K2 and K3 call of those frames against its plain
+            # version on the same inputs
+            err = 0.0
+            for i, (mode, args) in enumerate(calls):
+                what = f"live {name}, {mode} call {i}"
+                if mode == "exit":
+                    err = max(err, same_exit(traverse.exit_march(*args),
+                                             traverse.exit_march_plain(*args), args[7], what))
+                else:
+                    err = max(err, same_traversal(traverse.traverse(*args, mode=mode),
+                                                  plain_traversal(args, mode), what))
+            (ka, kr), (pa, pr) = got
+            frac, dmax = pixels_off(ka, pa)
+            off = round(frac * ka[..., 0].numel())
+            lv = np.abs(kr.astype(np.int32) - pr.astype(np.int32)).max(-1)
+            log(f"[25] live {name}, {len(short)} frames with a move and an edit, kernels vs "
+                f"plain: each of the {len(calls)} K1/K2/K3 calls equal in hit, volume and cell "
+                f"on the same inputs (t and normals within {err:.3g}); accumulator max diff "
+                f"{dmax:.3g}, {off} pixels off by more than 1e-3; uint8 image "
+                f"{int((lv > 0).sum())} pixels differ, by at most {int(lv.max())} level(s)")
+            check(off == 0, f"live {name}: {off} pixels of the accumulator off by more than "
+                  f"1e-3, kernels vs plain")
+            del scene, live, got, calls
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "voxtracer_torch.cli", "live", "--script",
+                              "..w.", "--no-display"], capture_output=True, text=True, env=env,
+                             timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(run.returncode == 0 and "live: 4 frames rendered" in run.stderr,
+              f"cli live exited {run.returncode}: {run.stderr[-2000:]}")
+        log(f"[25] cli live --script ..w. --no-display (monu, 256x212): exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 26. ray-sharded frames and the sharded step: 1 rank in this
+        # process, 4 ranks spawned on the one card
+        backend = multihost.backend_for(SHARD_RANKS)
+        log(f"[26] {SHARD_RANKS} ranks on {torch.cuda.device_count()} card(s): backend "
+            f"{backend} (NCCL when every rank has a card of its own; ranks sharing a card use "
+            f"gloo, collectives through host copies; every rank renders on the card)")
+        frames = (("monu_like 1920x1080 path, 4 bounces", "monu_like_path", {}),
+                  ("glassbox 512x512 whitted, depth 5", "glass_sphere_box",
+                   dict(width=512, height=512)))
+        one = sharded_frames_rank(frames, 3)
+        many = multihost.spawn(sharded_frames_rank, SHARD_RANKS, (frames, 3), timeout=600)
+        for label, _, _ in frames:
+            a, b = one[label], many[0][label]
+            same = np.array_equal(a["image"], b["image"])
+            ndiff = int((a["image"] != b["image"]).any(-1).sum())
+            check(same, f"{label}: {SHARD_RANKS} ranks differ from 1 rank in {ndiff} pixels")
+            check(bool(np.isfinite(a["image"]).all()) and 0.01 < float(a["image"].mean()) < 10,
+                  f"{label}: mean {float(a['image'].mean())}")
+            for r in many:
+                check(r[label]["launches"]["traverse_nearest"] > 0,
+                      f"{label}: rank {r[label]['rank']} launched no K1")
+            # each rank's share through the kernels against the plain versions
+            held = [pixels_off(torch.from_numpy(x["image"]), torch.from_numpy(x["plain"]))
+                    for x in (a, b)]
+            paths[f"sharded {label}, rank 0 of {SHARD_RANKS}"] = b["launches"]
+            paths[f"sharded {label}, 1 rank"] = a["launches"]
+            log(f"[26] render_sharded {label}: {SHARD_RANKS} ranks equal 1 rank bit for bit "
+                f"(mean {float(a['image'].mean()):.4f}); host ms a frame, 1 rank "
+                f"{statistics.median(a['times']):.1f} (reps {[round(t, 1) for t in a['times']]}), "
+                f"{SHARD_RANKS} ranks (rank 0) {statistics.median(b['times']):.1f} (reps "
+                f"{[round(t, 1) for t in b['times']]}) ({smi}); peak memory MiB 1 rank "
+                f"{a['peak'] / 2**20:.0f}, per rank {[round(r[label]['peak'] / 2**20) for r in many]}"
+                f"; launches 1 rank {a['launches']}, per rank "
+                f"{[r[label]['launches'] for r in many]}; kernels vs plain, 1 rank: max diff "
+                f"{held[0][1]:.3g}, {held[0][0]:.4%} of pixels off by more than 1e-3; "
+                f"{SHARD_RANKS} ranks: max diff {held[1][1]:.3g}, {held[1][0]:.4%}")
+        del one, many
+        # the branch queue without its exact order, twice on 1 rank: the
+        # card's per-pixel scatter-add (atomics) in no fixed order
+        wscene, wcfg = presets.glass_sphere_box(512, 512)
+        wscene = wscene.to(dev)
+        w1, w2 = (integrator.render(wscene, wcfg, key) for _ in range(2))
+        log(f"[26] the whitted 512x512 frame twice through render (the queue's scatter-add): "
+            f"{int((w1 != w2).any(-1).sum())} pixels differ bit-wise, max "
+            f"{float((w1 - w2).abs().max()):.3g}")
+        del wscene, w1, w2
+        sw, sh = STEP_SIZE
+        one = sharded_step_rank(sw, sh, 16)
+        many = multihost.spawn(sharded_step_rank, SHARD_RANKS, (sw, sh, 16), timeout=600)
+        check(one["shape"] == (1, 1) and many[0]["shape"] == (2, 2), "mesh shapes")
+        full = np.concatenate([r["grad_density"] for r in many if r["coords"][0] == 0], axis=1)
+        rel_d = float(np.linalg.norm(full - one["grad_density"])
+                      / np.linalg.norm(one["grad_density"]))
+        rel_a = max(float(np.linalg.norm(r["grad_albedo"] - one["grad_albedo"])
+                          / np.linalg.norm(one["grad_albedo"])) for r in many)
+        dloss = max(abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in many)
+        check(dloss <= 1e-5, f"sharded step: loss off by {dloss:.3g} relative")
+        check(rel_d <= 1e-4 and rel_a <= 1e-4,
+              f"sharded step: gradient relative L2 density {rel_d:.3g}, albedo {rel_a:.3g}")
+        for r in many:
+            check(r["launches"]["lookup_rows_bwd"] > 0 and r["launches"]["lookup_rows"] > 0,
+                  f"rank at {r['coords']}: no K4 / K4-bwd launch")
+        # the 1-rank step through the plain versions: [9]'s gradient gate
+        plain = sharded_step_rank(sw, sh, 16, plain=True)
+        ploss = abs(one["loss"] - plain["loss"]) / abs(plain["loss"])
+        prel = {f: float(np.linalg.norm(one[f] - plain[f]) / np.linalg.norm(plain[f]))
+                for f in ("grad_density", "grad_albedo")}
+        check(ploss <= 1e-5 and max(prel.values()) <= 1e-4,
+              f"sharded step, kernels vs plain: loss {ploss:.3g} relative, gradient relative L2 "
+              f"{prel}")
+        paths[f"sharded step {sw}x{sh}, rank 0 of {SHARD_RANKS}"] = many[0]["launches"]
+        paths[f"sharded step {sw}x{sh}, 1 rank"] = one["launches"]
+        log(f"[26] train_demo step, monu_like {sw}x{sh}, 16 march steps, (2, 2) mesh against 1 "
+            f"rank: loss {one['loss']:.6g} (off by {dloss:.3g} relative), gradient relative L2 "
+            f"density {rel_d:.3g}, albedo {rel_a:.3g}; step ms 1 rank {one['ms']:.1f}, per rank "
+            f"{[round(r['ms'], 1) for r in many]} ({smi}); peak memory MiB 1 rank "
+            f"{one['peak'] / 2**20:.0f}, per rank {[round(r['peak'] / 2**20) for r in many]}; "
+            f"launches 1 rank {one['launches']}, per rank {[r['launches'] for r in many]}; "
+            f"1 rank kernels vs plain: loss off by {ploss:.3g} relative, gradient relative L2 "
+            f"density {prel['grad_density']:.3g}, albedo {prel['grad_albedo']:.3g}")
+        del one, many, plain
+
+        # ---- 27. the scaling bench at 1080p on the one card
+        res = scaling.measure(1920, 1080, 1, 3)
+        check([r["devices"] for r in res] == [1, 2, 4] and all(r["rays_s"] > 0 for r in res),
+              f"scaling: {res}")
+        log("[27] bench.scaling 1920x1080 monu_path (one stand-in model, 4 bounces): "
+            + "; ".join(f"{r['devices']} rank(s) {r['seconds'] * 1e3:.1f} ms a frame, "
+                        f"{r['rays_s'] / 1e6:.3f} Mrays/s, efficiency {r['efficiency']:.3f}"
+                        for r in res) + f" ({smi})")
+    finally:
+        presets.ASSET_DIR = kept_dir
+        if kept_env is None:
+            os.environ.pop("VOX_ASSETS", None)
+        else:
+            os.environ["VOX_ASSETS"] = kept_env
+        tmp.cleanup()
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2249,17 +2565,20 @@ def main(argv=None) -> int:
     # ---- 22-24. .vox loading, the asset presets and the game, on stand-ins
     asset_paths = asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results)
 
+    # ---- 25-27. the live viewer, the sharded paths and the scaling bench
+    live_paths = live_dist_phases(dev, key, smi, reset_counts, counts)
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
              "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths,
-             **asset_paths}
+             **asset_paths, **live_paths}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:
-        r["launches"] = sum(c[r["name"]] for c in paths.values())
+        r["launches"] = sum(c.get(r["name"], 0) for c in paths.values())
     # K1 and K2 keep everything in registers
     for f in ptx:
         if f["name"].startswith("traverse_kernel"):

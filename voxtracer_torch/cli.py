@@ -9,6 +9,8 @@ headless, print the device.
     python -m voxtracer_torch.cli render --preset monu_like --dof --defocus 4   # thin lens
     python -m voxtracer_torch.cli render --preset room     # .vox assets from $VOX_ASSETS
     python -m voxtracer_torch.cli play --steps 8 --light-kill --output game.png
+    python -m voxtracer_torch.cli live --preset monu      # terminal viewer, fly camera
+    python -m voxtracer_torch.cli live --preset glassbox --script ..w. --no-display
     python -m voxtracer_torch.cli info
 
 The scene lives on ``--device`` (default ``cuda``); CUDA tensors run the
@@ -20,13 +22,17 @@ whitted frames are rendered as the JAX CLI renders them (``render`` of
 mean; reproject frames carry the illumination history from frame to frame
 and the last resolved frame is written.  ``--dof`` focuses on the first
 hit of the centre pixel's ray (t clamped to [-1, 1e4], as the JAX CLI)
-and draws a thin-lens sample per path ray.
+and draws a thin-lens sample per path ray.  ``live`` is the JAX CLI's
+viewer (viewer.run_live): the preset at its own size, rendered at
+--width x --height, progressively, with the fly camera and live edits;
+--script drives it headless, one key a frame ('.' an idle frame).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -197,6 +203,28 @@ def cmd_play(args) -> None:
           f"volumes={len(game.volumes)} -> {args.output}")
 
 
+def cmd_live(args) -> None:
+    """The interactive viewer (reference window + input loop,
+    template.cpp:296-329), set up as the JAX CLI sets it up: the preset
+    built at its own size, then rendered at --width x --height."""
+    from voxtracer_torch.viewer import run_live
+
+    scene, cfg = PRESETS[args.preset]()
+    cfg = dataclasses.replace(cfg, width=args.width, height=args.height)
+    if args.mode:
+        cfg = dataclasses.replace(cfg, mode=args.mode)
+    if args.bounces:
+        cfg = dataclasses.replace(cfg, max_bounces=args.bounces)
+    script = None
+    if args.script:
+        # one character per frame; '.' = idle frame (accumulate only)
+        script = [set() if c == "." else {c} for c in args.script]
+    frames, _ = run_live(scene.to(torch.device(args.device)), cfg, max_frames=args.frames,
+                         script=script, display=not args.no_display, spp=args.spp,
+                         seed=args.seed)
+    print(f"live: {frames} frames rendered", file=sys.stderr)
+
+
 def cmd_info(args) -> None:
     print("torch:", torch.__version__, "CUDA:", torch.version.cuda)
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -234,6 +262,20 @@ def main(argv=None) -> None:
     g.add_argument("--device", default="cuda")
     g.add_argument("--output", default="game.png")
     g.set_defaults(fn=cmd_play)
+    v = sub.add_parser("live", help="interactive terminal viewer (fly camera)")
+    v.add_argument("--preset", choices=sorted(PRESETS), default="monu")
+    v.add_argument("--width", type=int, default=256)
+    v.add_argument("--height", type=int, default=212)
+    v.add_argument("--mode", choices=("primary", "whitted", "path"))
+    v.add_argument("--bounces", type=int, default=0)
+    v.add_argument("--frames", type=int, default=0, help="stop after N frames (0 = until quit)")
+    v.add_argument("--script", default="",
+                   help="headless key script, one char per frame ('.'=idle)")
+    v.add_argument("--no-display", action="store_true")
+    v.add_argument("--spp", type=int, default=1)
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--device", default="cuda")
+    v.set_defaults(fn=cmd_live)
     i = sub.add_parser("info", help="the torch build and its devices")
     i.set_defaults(fn=cmd_info)
     args = ap.parse_args(argv)

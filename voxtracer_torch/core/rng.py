@@ -70,25 +70,48 @@ def key_seed(key: tuple) -> int:
     return _pcg(s ^ key[1])
 
 
-def hash_bits(key: tuple, salt: int, shape, device) -> torch.Tensor:
-    """uint32 hash stream over (seed, salt, counter), as int64 values."""
+def counters(shape, device, lanes=None, axis: int = -1) -> torch.Tensor:
+    """The int64 counter of each element of `shape`, flat in row-major
+    order.  Without `lanes`: 0 .. prod(shape) - 1.  With lanes = (first,
+    total): `shape` is a window of a global array whose `axis` holds
+    `total` lanes, this one lanes [first, first + shape[axis]) of them, and
+    each element gets the counter it has in the global array (a rank of a
+    sharded render draws its lanes of the global streams without drawing
+    the rest)."""
     n = math.prod(shape)
+    if lanes is None:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    first, total = lanes
+    axis %= len(shape)
+    gshape = list(shape)
+    gshape[axis] = total
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    for a, size in enumerate(shape):
+        c = torch.arange(size, dtype=torch.int64, device=device) + (first if a == axis else 0)
+        view = [1] * len(shape)
+        view[a] = size
+        idx = idx + c.reshape(view) * math.prod(gshape[a + 1:])
+    return idx.reshape(-1)
+
+
+def hash_bits(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
+    """uint32 hash stream over (seed, salt, counter), as int64 values;
+    the lanes of a window (``counters``) run along the last axis."""
     base = _pcg(key_seed(key) ^ ((salt * _GOLDEN) & M32))
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    x = _pcg(idx ^ base)
+    x = _pcg(counters(shape, device, lanes, -1) ^ base)
     return _pcg(x ^ ((base * _PRIME1) & M32)).reshape(shape)
 
 
-def hash_uniform(key: tuple, salt: int, shape, device) -> torch.Tensor:
+def hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """f32 uniforms in [0, 1): the top 24 hash bits scaled."""
-    bits = hash_bits(key, salt, shape, device)
+    bits = hash_bits(key, salt, shape, device, lanes)
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def hash_normal(key: tuple, salt: int, shape, device) -> torch.Tensor:
+def hash_normal(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """f32 standard normals by Box-Muller over two uniform streams."""
-    u1 = hash_uniform(key, salt, shape, device)
-    u2 = hash_uniform(key, salt + 0x5D0, shape, device)
+    u1 = hash_uniform(key, salt, shape, device, lanes)
+    u2 = hash_uniform(key, salt + 0x5D0, shape, device, lanes)
     r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
     return r * torch.cos((2.0 * math.pi) * u2)
 
@@ -98,12 +121,13 @@ def hash_normal(key: tuple, salt: int, shape, device) -> torch.Tensor:
 # reproject pass draws from these directly, not through the hash.
 # --------------------------------------------------------------------------
 
-def threefry_bits(key: tuple, shape, device) -> torch.Tensor:
+def threefry_bits(key: tuple, shape, device, lanes=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values: element i
     of the row-major shape is ``y0 ^ y1`` of threefry2x32(key, (hi, lo))
-    over the 64-bit counter i = hi * 2**32 + lo."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    over the 64-bit counter i = hi * 2**32 + lo; the lanes of a window
+    (``counters``) run along the first axis."""
+    idx = counters(shape, device, lanes, 0)
+    n = math.prod(shape) if lanes is None else math.prod(shape[1:]) * lanes[1]
     hi = idx >> 32 if n > M32 else 0
     y0, y1 = _threefry2x32(key[0], key[1], hi, idx & M32)
     return (y0 ^ y1).reshape(shape)
@@ -115,9 +139,10 @@ def _unit_floats(bits):
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def threefry_uniform(key: tuple, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)``, bit for bit."""
-    return _unit_floats(threefry_bits(key, shape, device))
+def threefry_uniform(key: tuple, shape, device, lanes=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)``, bit for bit; `lanes`
+    as in ``threefry_bits``."""
+    return _unit_floats(threefry_bits(key, shape, device, lanes))
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),

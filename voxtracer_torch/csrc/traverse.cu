@@ -319,7 +319,11 @@ __device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
 }
 
 // GetNormalVoxel (scene.cpp:121-148): object-space face normal at t,
-// taken to world space by fwd's linear part (constants row m).
+// taken to world space by fwd's linear part (constants row m), scaled by
+// rsqrtf as the reference scales it by lax.rsqrt: the plain version's
+// torch.rsqrt is rsqrtf on the card, so the two normals are the same bits
+// (1/sqrtf differs by an ulp, which a refracted branch can carry into
+// another cell).
 __device__ __forceinline__ float frac_dist(float o, float dc, float t,
                                            float gs_f) {
   float i1 = (o + t * dc) * gs_f;
@@ -341,7 +345,7 @@ __device__ __forceinline__ void normal_at(const float* m, const Ray& r, float t,
   float wx = f[0] * ox + f[1] * oy + f[2] * oz;
   float wy = f[3] * ox + f[4] * oy + f[5] * oz;
   float wz = f[6] * ox + f[7] * oy + f[8] * oz;
-  float inv_len = 1.0f / sqrtf(nmax(wx * wx + wy * wy + wz * wz, 1e-20f));
+  float inv_len = rsqrtf(nmax(wx * wx + wy * wy + wz * wz, 1e-20f));
   nx = wx * inv_len;
   ny = wy * inv_len;
   nz = wz * inv_len;

@@ -109,11 +109,15 @@ def fused_step(params: DiffParams, scene: Scene, cfg: RenderConfig, key, plan: B
     return img_mean, grads
 
 
-def make_train_step(cfg: RenderConfig, n_steps: int = 64, lr: float = 1e-2, **march):
+def make_train_step(cfg: RenderConfig, n_steps: int = 64, lr: float = 1e-2, grad_fn=None,
+                    **march):
     """Returns (step, init).  ``init(params)`` makes the params' tensors
     trainable leaves and returns the optimizer; ``step(params, opt, scene,
     target)`` -> (params, opt, loss) updates params in place by one Adam
-    step on the MSE of render_diff(params, scene, cfg, n_steps, **march)."""
+    step on the gradient of grad_fn(params, scene, target) -> (loss,
+    DiffParams of gradients), by default the backward of the MSE of
+    render_diff(params, scene, cfg, n_steps, **march); the leaves' .grad
+    keep the step's gradient."""
 
     def init(params: DiffParams):
         leaves = [params.density_logits.requires_grad_(), params.albedo_table.requires_grad_()]
@@ -121,8 +125,13 @@ def make_train_step(cfg: RenderConfig, n_steps: int = 64, lr: float = 1e-2, **ma
 
     def step(params: DiffParams, opt, scene: Scene, target):
         opt.zero_grad(set_to_none=True)
-        loss = mse_loss(params, scene, cfg, target, n_steps, **march)
-        loss.backward()
+        if grad_fn is None:
+            loss = mse_loss(params, scene, cfg, target, n_steps, **march)
+            loss.backward()
+        else:
+            loss, grads = grad_fn(params, scene, target)
+            params.density_logits.grad = grads.density_logits
+            params.albedo_table.grad = grads.albedo_table
         opt.step()
         return params, opt, loss.detach()
 
@@ -130,11 +139,13 @@ def make_train_step(cfg: RenderConfig, n_steps: int = 64, lr: float = 1e-2, **ma
 
 
 def train_demo(scene: Scene, cfg: RenderConfig, target, iters: int = 1, n_steps: int = 64,
-               lr: float = 1e-2, **march):
-    """`iters` steps from params_from_scene -> (params, last loss)."""
-    params = params_from_scene(scene)
+               lr: float = 1e-2, params: DiffParams | None = None, grad_fn=None, **march):
+    """`iters` steps (``make_train_step``) from `params`, by default
+    params_from_scene -> (params, last loss)."""
+    if params is None:
+        params = params_from_scene(scene)
     target = torch.as_tensor(target, dtype=F32).to(scene.device)
-    step, init = make_train_step(cfg, n_steps, lr, **march)
+    step, init = make_train_step(cfg, n_steps, lr, grad_fn, **march)
     opt = init(params)
     loss = None
     for _ in range(iters):

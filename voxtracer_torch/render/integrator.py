@@ -322,13 +322,14 @@ def _light_row(tab, i):
     return tab[i, 0], tab[i, 1], tab[i, 2]
 
 
-def _det_illumination(scene: Scene, cfg: RenderConfig, p, nrm, alb, active, key):
+def _det_illumination(scene: Scene, cfg: RenderConfig, p, nrm, alb, active, key, lanes=None):
     """The deterministic all-lights NEE sum (renderer.cpp:102-207, 738-764)
     with one shadow traversal: every light's shadow segments start at the
     same offset origin, so they are concatenated into one [L*N]-ray
     occlusion call, and the per-light contributions are added afterwards
     in the reference's summation order.  Area lights take
-    NUM_AREA_SAMPLES samples each."""
+    NUM_AREA_SAMPLES samples each, drawn at the rays' `lanes` (as in
+    ``core.rng.counters``; None: lanes 0 .. N-1)."""
     L = scene.lights
     nrays, dev = p[0].shape[0], p[0].device
     zero = tuple(torch.zeros(nrays, dtype=F32, device=dev) for _ in range(3))
@@ -350,7 +351,7 @@ def _det_illumination(scene: Scene, cfg: RenderConfig, p, nrm, alb, active, key)
         lmul, lrad = L.area_mult[i], L.area_radius[i]
         sidx = []
         for k in range(NUM_AREA_SAMPLES):
-            gk = hash_normal(ki, 200 + k, (3, nrays), dev)
+            gk = hash_normal(ki, 200 + k, (3, nrays), dev, lanes)
             rnd = coctant_dir((gk[0], gk[1], gk[2]))
             to_l = csub(cadd(cscale(lrad, rnd), lpos), p)
             dst = mathx.sqrt(cdot(to_l, to_l))
@@ -400,22 +401,23 @@ def _det_illumination(scene: Scene, cfg: RenderConfig, p, nrm, alb, active, key)
     return acc
 
 
-def illumination(scene: Scene, cfg: RenderConfig, p, nrm, active, key, alb):
+def illumination(scene: Scene, cfg: RenderConfig, p, nrm, active, key, alb, lanes=None):
     """Renderer::Illumination: one random light, scaled by the light count,
     with all light types sharing one shadow traversal; or, with
     cfg.deterministic_lights, the all-lights sum (same expectation).  In
     the random branch area lights use a one-sample estimate of the
     reference's N-sample mean (same expectation).  p, nrm, alb: component
-    tuples.  Returns a tuple."""
+    tuples; the rays draw at `lanes` (as in ``core.rng.counters``).
+    Returns a tuple."""
     if cfg.deterministic_lights:
-        return _det_illumination(scene, cfg, p, nrm, alb, active, key)
+        return _det_illumination(scene, cfg, p, nrm, alb, active, key, lanes)
     L = scene.lights
     n_p, n_a, n_s = L.n_point, L.n_area, L.n_spot
     total = L.count
     nrays, dev = p[0].shape[0], p[0].device
     zero = tuple(torch.zeros(nrays, dtype=F32, device=dev) for _ in range(3))
 
-    u = hash_uniform(key, 7, (nrays,), dev)
+    u = hash_uniform(key, 7, (nrays,), dev, lanes)
     idx = torch.clamp((u * total).to(torch.int32), max=total - 1)
     dirn = zero
     intensity = zero
@@ -442,7 +444,7 @@ def illumination(scene: Scene, cfg: RenderConfig, p, nrm, active, key, alb):
         lcol = cpack(L.area_color[i_a])
         lmul = L.area_mult[i_a]
         lrad = L.area_radius[i_a]
-        gk = hash_normal(key, 11, (3, nrays), dev)
+        gk = hash_normal(key, 11, (3, nrays), dev, lanes)
         rnd = coctant_dir((gk[0], gk[1], gk[2]))
         target = cadd(cscale(lrad, rnd), lpos)
         to_l = csub(target, p)
@@ -493,11 +495,12 @@ def illumination(scene: Scene, cfg: RenderConfig, p, nrm, active, key, alb):
 # Path integrator (renderer.cpp:1076-1328 flattened)
 # --------------------------------------------------------------------------
 
-def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey):
+def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey, lanes=None):
     """One wavefront bounce: nearest traversal, material-lobe shading, NEE
     and continuation.  Inactive rays pass through unchanged.  With
     cfg.detect_light_kill the state carries the light-kill flags,
-    ``in_light``, ORed over the bounces."""
+    ``in_light``, ORed over the bounces.  The rays draw their samples at
+    `lanes` (as in ``core.rng.counters``; None: lanes 0 .. n-1)."""
     n, dev = st["o"][0].shape[0], st["o"][0].device
     one3 = tuple(torch.ones(n, dtype=F32, device=dev) for _ in range(3))
     o, d, active = st["o"], st["d"], st["active"]
@@ -558,22 +561,22 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey):
     # stream; a squared length above the threshold flags the ray
     if cfg.detect_light_kill:
         lk_mask = active & is_smoke & (vol == 0)
-        lk = illumination(scene, cfg, p_hit, nrm, lk_mask, fold_in(bkey, 9), alb)
+        lk = illumination(scene, cfg, p_hit, nrm, lk_mask, fold_in(bkey, 9), alb, lanes)
         in_light = st["in_light"] | (lk_mask & (cdot(lk, lk) > cfg.light_kill_threshold))
 
     # NEE for diffuse-ish lobes
-    u_lobe = hash_uniform(bkey, 1, (n,), dev)
+    u_lobe = hash_uniform(bkey, 1, (n,), dev, lanes)
     cos_in = torch.clamp(cdot(cneg(d), nrm), max=1.0)
     go_diffuse = u_lobe > mathx.schlick_nonmetal(cos_in)
     nee_mask = active & ((is_nonmetal & go_diffuse) | is_model)
-    inc = illumination(scene, cfg, p_hit, nrm, nee_mask, fold_in(bkey, 2), alb)
+    inc = illumination(scene, cfg, p_hit, nrm, nee_mask, fold_in(bkey, 2), alb, lanes)
     # nonmetal: rad += T * inc ; model: rad += T * alb * inc
     rad = cwhere(nee_mask & is_nonmetal, cadd(rad, cmul(st["tp"], inc)), rad)
     rad = cwhere(nee_mask & is_model, cadd(rad, cmul(st["tp"], cmul(alb, inc))), rad)
 
     # continuation directions per lobe
-    u_sph = hash_uniform(bkey, 3, (3, n), dev)
-    g_hemi = hash_normal(bkey, 4, (3, n), dev)
+    u_sph = hash_uniform(bkey, 3, (3, n), dev, lanes)
+    g_hemi = hash_normal(bkey, 4, (3, n), dev, lanes)
     refl = creflect(d, nrm)
     sph = csphere_sample(u_sph[0], u_sph[1], u_sph[2])
     spec_dir = cadd(refl, cscale(rough, sph))
@@ -585,7 +588,7 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey):
     cos_g = torch.clamp(cdot(cneg(d), nrm), max=1.0)
     sin_g = mathx.sqrt(torch.clamp(1.0 - cos_g * cos_g, min=0.0))
     cannot_refract = ratio * sin_g > 1.0
-    u_f = hash_uniform(bkey, 5, (n,), dev)
+    u_f = hash_uniform(bkey, 5, (n,), dev, lanes)
     do_reflect = cannot_refract | (mathx.schlick(cos_g, ratio) > u_f)
     refr_dir = crefract(d, nrm, ratio)
     glass_dir = cwhere(do_reflect, refl, refr_dir)
@@ -596,8 +599,8 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey):
     # unconditional ratio-1 "refraction" pass-through
     intensity = torch.where(in_glass & is_smoke, emis, 0.0)
     dist = torch.where(march, t, 0.0)
-    u_s = hash_uniform(bkey, 6, (2, n), dev)
-    g_oct = hash_normal(bkey, 8, (3, n), dev)
+    u_s = hash_uniform(bkey, 6, (2, n), dev, lanes)
+    g_oct = hash_normal(bkey, 8, (3, n), dev, lanes)
     thresh = u_s[0] * 100.0 - intensity
     scatter = active & is_smoke & (u_s[1] * dist > thresh)
     scat_t = t * 0.45 + u_s[0] * (t - t * 0.45)  # Rand(t * .45, t)
@@ -749,14 +752,26 @@ def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key):
     return rad.index_select(0, inv), None if in_light is None else in_light.index_select(0, inv)
 
 
-def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = False):
+def path_reorders(scene: Scene, cfg: RenderConfig, n: int) -> bool:
+    """Whether trace_path re-sorts a wavefront of n rays between bounces."""
+    return cfg.max_bounces >= 1 and (
+        cfg.bounce_reorder == "always"
+        or (cfg.bounce_reorder == "auto" and _is_paged(scene) and n >= cfg.compact_min))
+
+
+def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = False,
+               lanes=None):
     """Full stochastic light transport; o, d: [N, 3] -> radiance [N, 3],
     and with return_aux a dict with the per-ray light-kill flags
     ``in_light`` [N] (renderer.cpp:1437-1450; all false unless
     cfg.detect_light_kill).  Up to max_bounces + 1 segments
     (renderer.cpp:1076-1083), stopping early once every ray has
     terminated.  With cfg.bounce_reorder the wavefront is re-sorted
-    between bounces (``_trace_path_reordered``)."""
+    between bounces (``_trace_path_reordered``).  The rays draw their
+    samples at `lanes` = (first, total), lanes [first, first + N) of a
+    wavefront of total rays (``core.rng.counters``; None: (0, N)).  A
+    re-sorted wavefront is the whole one, so `lanes` other than (0, N)
+    refuse a frame that reorders."""
     n, dev = o.shape[0], o.device
     zero3 = tuple(torch.zeros(n, dtype=F32, device=dev) for _ in range(3))
     state = dict(
@@ -769,16 +784,18 @@ def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = Fa
     )
     if cfg.detect_light_kill:
         state["in_light"] = torch.zeros(n, dtype=torch.bool, device=dev)
-    reorder = (cfg.bounce_reorder == "always"
-               or (cfg.bounce_reorder == "auto" and _is_paged(scene)
-                   and n >= cfg.compact_min))
-    if reorder and cfg.max_bounces >= 1:
+    if lanes is not None and tuple(lanes) == (0, n):
+        lanes = None
+    if path_reorders(scene, cfg, n if lanes is None else lanes[1]):
+        if lanes is not None:
+            raise ValueError("the bounce reorder sorts the whole wavefront: a window of "
+                             f"lanes {tuple(lanes)} cannot trace its share alone")
         rad, in_light = _trace_path_reordered(scene, cfg, state, key)
     else:
         for depth in range(cfg.max_bounces + 1):
             if not bool(state["active"].any()):
                 break
-            state = _bounce_core(scene, cfg, state, fold_in(key, depth))
+            state = _bounce_core(scene, cfg, state, fold_in(key, depth), lanes)
         rad, in_light = cstack(_apply_deferred_sky(scene, cfg, state)), state.get("in_light")
     if not return_aux:
         return rad
@@ -906,14 +923,14 @@ def trace_whitted(scene: Scene, cfg: RenderConfig, o, d, depth: int,
 
 
 # the queue's packed columns: origin, direction, RGB weight, inside-medium
-# flag, depth left, pixel id
-_QO, _QD, _QW, _QGL, _QDEP, _QPIX = 0, 3, 6, 9, 10, 11
-_QCOLS = 12
+# flag, depth left, pixel id, and in an exact queue the branch code (1 for
+# a pixel's first branch; the children of branch c are 2c and 2c + 1)
+_QO, _QD, _QW, _QGL, _QDEP, _QPIX, _QCODE = 0, 3, 6, 9, 10, 11, 12
 
 
-def _qpack(o, d, w, gl, dep, pix):
-    return torch.stack([o[0], o[1], o[2], d[0], d[1], d[2], w[0], w[1], w[2],
-                        gl, dep, pix], dim=1)
+def _qpack(o, d, w, gl, dep, pix, code=None):
+    cols = [o[0], o[1], o[2], d[0], d[1], d[2], w[0], w[1], w[2], gl, dep, pix]
+    return torch.stack(cols if code is None else cols + [code], dim=1)
 
 
 def trace_whitted_iter(scene: Scene, cfg: RenderConfig, o, d, depth: int,
@@ -924,7 +941,23 @@ def trace_whitted_iter(scene: Scene, cfg: RenderConfig, o, d, depth: int,
     return (img, it) if return_iters else img
 
 
-def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
+def _sum_in_branch_order(n, log, depth):
+    """Each pixel's logged contributions summed one at a time in the order
+    of their branch codes -> radiance [n, 3].  log: (pixel ids [M] i64,
+    branch codes [M] i64, contributions [M, 3]) chunks."""
+    dev = log[0][2].device
+    img = torch.zeros((n, 3), dtype=F32, device=dev)
+    pix = torch.cat([c[0] for c in log])
+    order = torch.sort(pix * (1 << (depth + 2)) + torch.cat([c[1] for c in log]))[1]
+    pix, val = pix[order], torch.cat([c[2] for c in log])[order]
+    rank = torch.arange(pix.shape[0], device=dev) - torch.searchsorted(pix, pix)
+    for r in range(int(rank.max()) + 1 if rank.numel() else 0):
+        at = (rank == r).nonzero()[:, 0]  # at most one entry a pixel
+        img[pix[at]] += val[at]
+    return img
+
+
+def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int, exact: bool = False):
     """Iterative Whitted as a fixed-width wavefront queue over branches.
 
     All pixels' pending branches sit in one packed [5N, 12] f32 queue
@@ -940,22 +973,33 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
     iterations.  Per-branch maths is ``trace_whitted``'s; only each
     pixel's summation order differs.  The queue population is read on the
     host once per iteration.  o, d: [N, 3] -> (radiance [N, 3],
-    iterations, largest queue population)."""
+    iterations, largest queue population).
+
+    exact: a pixel's radiance does not depend on the other rays of the
+    queue, so any split of the rays into queues gives the same image bit
+    for bit (a sharded frame): no branch is dropped (the queue grows past
+    5N and runs until it is empty), and each pixel's contributions are
+    logged and summed in the order of their branch codes (a 13th column,
+    ``_QCODE``; ``_sum_in_branch_order``), not as the batches meet them."""
     n, dev = o.shape[0], o.device
-    w_, cap = n, 5 * n
+    if exact and depth > 21:
+        raise ValueError(f"depth {depth}: branch codes past 2^23 are not exact in the "
+                         "queue's f32 columns")
+    w_, cap, ncols = n, 5 * n, _QCODE + 1 if exact else _QCODE
     one = torch.ones(n, dtype=F32, device=dev)
-    fr = torch.zeros((cap, _QCOLS), dtype=F32, device=dev)
+    fr = torch.zeros((cap, ncols), dtype=F32, device=dev)
     fr[:n] = _qpack(cpack(o), cpack(d), (one, one, one), torch.zeros_like(one),
                     torch.full_like(one, float(depth)),
-                    torch.arange(n, dtype=F32, device=dev))
+                    torch.arange(n, dtype=F32, device=dev), one if exact else None)
     img = torch.zeros(3 * n, dtype=F32, device=dev)
+    log = []
     m = scene.materials
     mtab = torch.cat([m.albedo, m.emissive[:, None], m.ior[:, None]], dim=1)
     lane = torch.arange(w_, device=dev)
     chan = torch.arange(3, device=dev)[:, None]
     zero = (torch.zeros(w_, dtype=F32, device=dev),) * 3
     count, it, peak = n, 0, n
-    while count > 0 and it < 4 * (depth + 2) + 8:
+    while count > 0 and (exact or it < 4 * (depth + 2) + 8):
         batch = fr[:w_]
         live = lane < min(count, w_)
         to, td = batch[:, _QO:_QO + 3], batch[:, _QD:_QD + 3]
@@ -964,6 +1008,7 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
         in_glass = batch[:, _QGL] > 0.5
         dep = batch[:, _QDEP].to(torch.int32)
         pixf = batch[:, _QPIX]
+        code = batch[:, _QCODE] if exact else None
 
         rec = find_nearest_world(scene, to, td, live)
         t, mat, vol = rec["t"], rec["mat"], rec["vol"]
@@ -1005,8 +1050,13 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
         contrib = cwhere(nee_mask & is_model,
                          cadd(contrib, cmul(w, cmul(alb, inc))), contrib)
         pix = pixf.to(torch.int64)
-        img.index_add_(0, (pix * 3 + chan).reshape(-1),
-                       torch.where(live, cstack(contrib).T, 0.0).reshape(-1))
+        if exact:
+            c3 = cstack(contrib)
+            at = (live & (c3 != 0.0).any(-1)).nonzero()[:, 0]
+            log.append((pix[at], code[at].to(torch.int64), c3[at]))
+        else:
+            img.index_add_(0, (pix * 3 + chan).reshape(-1),
+                           torch.where(live, cstack(contrib).T, 0.0).reshape(-1))
 
         can_rec = dep > 0
         refl = cunit(creflect(tdc, nrm))
@@ -1042,8 +1092,8 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
         dep_c = (dep - 1).to(F32)
         children = torch.cat([
             _qpack(cwhere(metal_go, mo, fo), cwhere(metal_go, refl, refr_dir), c1_w,
-                   c1_gl, dep_c, pixf),
-            _qpack(mo, refl, w_refl, gl, dep_c, pixf)])
+                   c1_gl, dep_c, pixf, None if code is None else 2.0 * code),
+            _qpack(mo, refl, w_refl, gl, dep_c, pixf, None if code is None else 2.0 * code + 1.0)])
         valid = torch.cat([c1, c2])
         # stable compaction: each valid child's destination is its rank
         # among the valid ones; invalid children land in a spill slot
@@ -1054,12 +1104,20 @@ def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int):
                      torch.arange(2 * w_, device=dev))
 
         # pop the batch, append the children behind what remains
-        rem = min(max(count - w_, 0), 4 * n - 2 * w_)
+        rem = max(count - w_, 0)
+        if not exact:
+            rem = min(rem, 4 * n - 2 * w_)
         fr = torch.roll(fr, -w_, dims=0)
+        if rem + nc > fr.shape[0]:
+            fr = torch.cat([fr, torch.zeros((rem + nc - fr.shape[0], ncols), dtype=F32,
+                                            device=dev)])
         fr[rem:rem + nc] = children[src[:nc]]
         count = rem + nc
         peak = max(peak, count)
         it += 1
+    if exact:
+        return (_sum_in_branch_order(n, log, depth) if log
+                else img.reshape(n, 3)), it, peak
     return img.reshape(n, 3), it, peak
 
 
