@@ -72,7 +72,18 @@ drives the port's two halves of the main path through its entry points:
   (2, 2) mesh against 1 rank (loss within 1e-5 relative, gradients within
   relative L2 1e-4), and the 1-rank step through the kernels against the
   plain versions to the same gate, with peak memory and launches per
-  rank; [27] ``bench.scaling.measure`` at 1080p on 1, 2 and 4 ranks.
+  rank; [27] ``bench.scaling.measure`` at 1080p on 1, 2 and 4 ranks;
+  [28] (``wavefront_phase``) the sharded frames that share one global
+  wavefront, on 1 rank and on 4 spawned on the card: the city_xl_like
+  1080p path frame with its bounce reorder (the packed state gathered at
+  each reorder) and stand-in roomglass 512^2 whitted, depth 3, with
+  random light choice (light samples drawn at the global queue slot, one
+  indicator sum an iteration), 4 ranks held equal to 1 bit for bit and
+  each held to the same frame through the plain versions (0 pixels off by
+  more than 1e-3), with frame times, peak memory, launches, reorders and
+  the bytes and ms of each exchange, queue iterations; the city frame
+  without the reorder and roomglass with every light summed on 1 rank,
+  for scale.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -744,16 +755,22 @@ def max_err(a, b):
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(chunked=False):
     """Swap the plain versions in for the kernels in every binding the
     port reaches them through: the integrator's (which every renderer,
     render/reproject.py included, uses), the relaxed march's traversal and
-    the lookup module's own names (which its autograd Function calls)."""
+    the lookup module's own names (which its autograd Function calls).
+    chunked: the integrator's K1/K2 calls go through ``plain_traversal``
+    (the active rays only, at most PLAIN_PAIRS pairs at a time), which a
+    1080p frame over 111 volumes needs."""
     from voxtracer_torch.diff import volumetric
     from voxtracer_torch.kernels import lookup, traverse
     from voxtracer_torch.render import integrator
 
-    swaps = [(integrator, "traverse", traverse.traverse_plain),
+    def chunked_traversal(*args, mode="nearest"):
+        return plain_traversal(args, mode)
+
+    swaps = [(integrator, "traverse", chunked_traversal if chunked else traverse.traverse_plain),
              (integrator, "exit_march", traverse.exit_march_plain),
              (integrator, "lookup_rows", lookup.lookup_rows_plain),
              (volumetric, "traverse", traverse.traverse_plain),
@@ -1217,8 +1234,8 @@ def asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results):
             del scene, img, a, b
 
         # K1, K2 and K3 on every call of the roomGlass frame: one 128^3 glass
-        # floor under the exit march; K1 and K2 held to the plain walk on
-        # their first call, K3 on every call
+        # floor under the exit march; each call held to the plain walk, with
+        # its bound (the plain version timed on K1's and K2's first call)
         log(f"[23] K1, K2 and K3 on the {len(glass_calls)} calls of the roomGlass 512^2 frame:")
         seen = {}
         for mode, args in glass_calls:
@@ -1241,15 +1258,8 @@ def asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results):
                              bound_ms=bnd[0], bound_by=bnd[1], share=bnd[0] / kern[0],
                              floor_ms=floor[0], max_abs_err=err)
                 rname = "exit_march"
-            elif i == 0:
-                entry = time_traversal(label, mode, args, plain_too=True, with_base=False)[0]
-                rname = f"traverse_{mode}"
             else:
-                kern = per_launch(lambda: traverse.traverse(*args, mode=mode))
-                nr, na = args[5].shape[0], int(args[8].sum())
-                log(f"    {label}: {nr} rays, {na} active; kernel {kern[0]:.4f} ms "
-                    f"({kern[1]:.1f} us host) ({smi})")
-                entry = dict(call=label, rays=nr, active=na, ms=kern[0], host_us=kern[1])
+                entry = time_traversal(label, mode, args, plain_too=i == 0, with_base=False)[0]
                 rname = f"traverse_{mode}"
             entry["path"] = "roomGlass 512^2 frame"
             next(r for r in results if r["name"] == rname).setdefault("calls", []).append(entry)
@@ -1431,10 +1441,155 @@ def sharded_step_rank(width, height, n_steps, plain=False):
                 launches=_kernel_counts(), peak=torch.cuda.max_memory_allocated(mesh.device))
 
 
+def wavefront_frames_rank(frames, reps):
+    """One rank of [28]: each (label, preset name, preset kwargs, config
+    fields, plain) of `frames` through render_sharded on this process's
+    mesh -> {label: launches of the counted frame, peak memory, host ms of
+    `reps` frames after it, the exchanges of one more frame (what, bytes,
+    ms, the device synchronised around each), its queue iterations, and
+    (rank 0) the counted frame's image and, with `plain`, the same frame
+    under the plain versions, every rank tracing its share plainly}."""
+    import torch
+
+    from voxtracer_torch.core.rng import fold_in, make_key
+    from voxtracer_torch.dist.mesh import make_mesh, render_sharded
+    from voxtracer_torch.scene import presets
+
+    mesh = make_mesh()
+    out = {}
+    for label, preset, kw, cfg_kw, plain in frames:
+        scene, cfg = getattr(presets, preset)(**kw)
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+        scene = scene.to(mesh.device)
+        key = make_key(0)
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        _reset_kernel_counts()
+        img = render_sharded(scene, cfg, key, 1, mesh)
+        torch.cuda.synchronize(mesh.device)
+        counted = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated(mesh.device)
+        times = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            render_sharded(scene, cfg, fold_in(key, 1 + i), 1, mesh)
+            torch.cuda.synchronize(mesh.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        stats = {}
+        render_sharded(scene, cfg, fold_in(key, 1 + reps), 1, mesh, stats)
+        pimg = None
+        if plain:
+            with plain_versions(chunked=True):
+                pimg = render_sharded(scene, cfg, key, 1, mesh)
+        rank0 = mesh.index == 0
+        out[label] = dict(launches=counted, peak=peak, times=times, rank=mesh.index,
+                          exchanges=stats.get("exchanges", []),
+                          iters=stats.get("queue_iterations"),
+                          image=img.cpu().numpy() if rank0 else None,
+                          plain=None if pimg is None or not rank0 else pimg.cpu().numpy())
+        del scene, img, pimg
+        torch.cuda.empty_cache()
+    return out
+
+
+def wavefront_phase(smi, city_size=(1920, 1080), room_size=(512, 512)):
+    """Phase [28]: the sharded frames that share one global wavefront, on 1
+    rank (this process) and on SHARD_RANKS ranks spawned on the one card:
+    the city_xl_like 1080p path frame, whose bounce reorder sorts the
+    whole wavefront (the state gathered at each reorder), and the
+    roomglass 512^2 whitted frame with random light choice, whose light
+    samples are drawn at each branch's slot in the global queue (one
+    indicator sum an iteration); for scale, the city frame without the
+    reorder and the roomglass frame with every light summed, on 1 rank.
+    -> {path: launch counts}."""
+    import numpy as np
+
+    from voxtracer_torch.dist import multihost
+
+    (cw, ch), (rw, rh) = city_size, room_size
+    city = f"city_xl_like {cw}x{ch} path, 4 bounces, reorder auto"
+    room = f"roomglass {rw}x{rh} whitted, depth 3, random light choice"
+    ckw, rkw = dict(width=cw, height=ch), dict(width=rw, height=rh, glass=True)
+    shared = ((city, "city_xl_like_path", ckw, {}, True),
+              (room, "room_whitted", rkw, dict(deterministic_lights=False), True))
+    scale = ((city + " -> none", "city_xl_like_path", ckw, dict(bounce_reorder="none"), False),
+             (room + " -> all lights summed", "room_whitted", rkw, {}, False))
+    one = wavefront_frames_rank(shared + scale, 3)
+    many = multihost.spawn(wavefront_frames_rank, SHARD_RANKS, (shared, 3), timeout=900)
+    paths = {}
+
+    def ms(times):
+        return (f"median {statistics.median(times):.1f}, min {min(times):.1f}, spread "
+                f"{max(times) - min(times):.1f}")
+
+    for label, _, _, _, _ in shared:
+        a, b = one[label], many[0][label]
+        ndiff = int((a["image"] != b["image"]).any(-1).sum())
+        check(ndiff == 0, f"[28] {label}: {SHARD_RANKS} ranks differ from 1 rank in {ndiff} "
+              "pixels")
+        check(bool(np.isfinite(a["image"]).all()) and 0.01 < float(a["image"].mean()) < 10,
+              f"[28] {label}: mean {float(a['image'].mean())}")
+        held = []
+        for x in (a, b):
+            off = int((np.abs(x["image"] - x["plain"]).max(-1) > 1e-3).sum())
+            check(off == 0, f"[28] {label}: {off} pixels off the plain versions by more than "
+                  "1e-3")
+            held.append(float(np.abs(x["image"] - x["plain"]).max()))
+        need = ["traverse_nearest", "traverse_occluded", "lookup_rows"]
+        need += ["exit_march"] if label == room else []
+        for r in [a] + [m[label] for m in many]:
+            for kk in need:
+                check(r["launches"][kk] > 0, f"[28] {label}: rank {r['rank']} launched no {kk}")
+        paths[f"[28] {label}, 1 rank"] = a["launches"]
+        for m in many:
+            paths[f"[28] {label}, rank {m[label]['rank']} of {SHARD_RANKS}"] = m[label]["launches"]
+        launches = [{k: v for k, v in m[label]["launches"].items() if v} for m in many]
+        if label == city:
+            kinds = {}
+            for rk, x in ((1, a), (SHARD_RANKS, b)):
+                re_ = [(bts, t) for w_, bts, t in x["exchanges"] if w_ == "reorder"]
+                check(len(re_) > 0, f"[28] {label}: no reorder on {rk} rank(s)")
+                kinds[rk] = (f"{len(re_)} reorders a frame, {re_[0][0] / 1e6:.1f} MB a rank "
+                             f"each, ms {[round(t, 1) for _, t in re_]}; un-permute "
+                             + ", ".join(f"{bts / 1e6:.1f} MB {t:.1f} ms" for w_, bts, t
+                                         in x["exchanges"] if w_ == "unpermute")
+                             + f"; {sum(w_ == 'alive' for w_, _, _ in x['exchanges'])} "
+                             "alive sums")
+            detail = f"1 rank: {kinds[1]}; {SHARD_RANKS} ranks (rank 0): {kinds[SHARD_RANKS]}"
+        else:
+            q = [(bts, t) for w_, bts, t in b["exchanges"] if w_ == "queue"]
+            check(a["iters"] == b["iters"] and len(q) == b["iters"][0],
+                  f"[28] {label}: queue iterations {a['iters']} / {b['iters']}, {len(q)} sums")
+            summed = one[room + " -> all lights summed"]["image"]
+            moved = float((np.abs(a["image"] - summed).max(-1) > 1e-3).mean())
+            check(moved > 0.01, f"[28] {label}: random light choice moved {moved:.4%} of the "
+                  "pixels of the all-lights frame")
+            detail = (f"{a['iters'][0]} queue iterations; {q[0][0] / 1e6:.3f} MB exchanged an "
+                      f"iteration (a [2W] uint8 indicator), ms {ms([t for _, t in q])}; "
+                      f"{moved:.2%} of pixels off the all-lights frame by more than 1e-3")
+        log(f"[28] render_sharded {label}: {SHARD_RANKS} ranks equal 1 rank bit for bit (mean "
+            f"{float(a['image'].mean()):.4f}); both 0 pixels off the plain versions by more "
+            f"than 1e-3 (max diff {held[0]:.3g} / {held[1]:.3g}); frame ms on rank 0's clock, 1 "
+            f"rank {ms(a['times'])} (reps {[round(t, 1) for t in a['times']]}), {SHARD_RANKS} "
+            f"ranks {ms(b['times'])} (reps {[round(t, 1) for t in b['times']]}) ({smi}); peak "
+            f"memory MiB 1 rank {a['peak'] / 2**20:.0f}, per rank "
+            f"{[round(m[label]['peak'] / 2**20) for m in many]}; {detail}; launches 1 rank "
+            f"{ {k: v for k, v in a['launches'].items() if v} }, per rank {launches}")
+    for label, _, _, _, _ in scale:
+        x = one[label]
+        paths[f"[28] {label}, 1 rank"] = x["launches"]
+        log(f"[28] {label}, 1 rank: frame ms {ms(x['times'])} (reps "
+            f"{[round(t, 1) for t in x['times']]}) ({smi}); mean {float(x['image'].mean()):.4f}; "
+            f"peak memory MiB {x['peak'] / 2**20:.0f}; launches "
+            f"{ {k: v for k, v in x['launches'].items() if v} }")
+    return paths
+
+
 def live_dist_phases(dev, key, smi, reset_counts, counts):
-    """Phases [25]-[27]: the live viewer on stand-in .vox files, the
+    """Phases [25]-[28]: the live viewer on stand-in .vox files, the
     ray-sharded frames and train step over torch.distributed (4 ranks on
-    the one card), and the scaling bench -> {path: launch counts}."""
+    the one card), the scaling bench and the sharded frames that share
+    one global wavefront -> {path: launch counts}."""
     import io
     import tempfile
 
@@ -1624,6 +1779,12 @@ def live_dist_phases(dev, key, smi, reset_counts, counts):
             + "; ".join(f"{r['devices']} rank(s) {r['seconds'] * 1e3:.1f} ms a frame, "
                         f"{r['rays_s'] / 1e6:.3f} Mrays/s, efficiency {r['efficiency']:.3f}"
                         for r in res) + f" ({smi})")
+
+        # ---- 28. the sharded frames that share one global wavefront
+        # (stand-ins: roomglass)
+        t0 = time.perf_counter()
+        paths.update(wavefront_phase(smi))
+        log(f"[28] {time.perf_counter() - t0:.1f} s")
     finally:
         presets.ASSET_DIR = kept_dir
         if kept_env is None:
@@ -2565,7 +2726,8 @@ def main(argv=None) -> int:
     # ---- 22-24. .vox loading, the asset presets and the game, on stand-ins
     asset_paths = asset_phases(dev, key, smi, reset_counts, counts, time_traversal, results)
 
-    # ---- 25-27. the live viewer, the sharded paths and the scaling bench
+    # ---- 25-28. the live viewer, the sharded paths, the scaling bench and
+    # the sharded frames of one global wavefront
     live_paths = live_dist_phases(dev, key, smi, reset_counts, counts)
 
     # ---- results: launches per path, then summed over all of them

@@ -12,6 +12,12 @@ runs under ``jax.disable_jit()``.
 Tolerances: the path tolerances of tests/test_torch_render.py (mean
 absolute difference <= 1e-4, at most 1% of pixels off by more than 1e-3);
 ``accumulate`` within 1 ulp-scale (rtol 1e-6, atol 1e-7) of JAX's.
+
+``cli render``'s set-up (``render_setup``) against the JAX CLI's, read
+from the scene and config its ``cmd_render`` hands to ``render``: at
+another aspect than the preset's (glassbox 32x16) the camera corners
+within 1e-6 and the config's size and bounces equal; ``--bounces 0``
+keeps the preset's bounces, as the JAX CLI's ``if args.bounces``.
 """
 
 import dataclasses
@@ -93,3 +99,44 @@ def test_progressive_state_defaults_to_the_card():
         with pytest.raises((AssertionError, RuntimeError)):
             accumulate.ProgressiveState(2, 2)
     assert accumulate.ProgressiveState(2, 2, device="cpu").acc.device.type == "cpu"
+
+
+def _jax_cli_setup(argv, monkeypatch, tmp_path):
+    """The (scene, cfg) the JAX CLI's ``cmd_render`` renders for argv (its
+    ``render`` swapped for one that records them and returns black)."""
+    from voxtracer import cli as jax_cli
+
+    got = []
+
+    def record(scene, cfg, key, spp):
+        got.append((scene, cfg))
+        return jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
+
+    monkeypatch.setattr(jax_integrator, "render", record)
+    jax_cli.main(argv + ["--output", str(tmp_path / "jax.png")])
+    return got[0]
+
+
+def _camera_corners(cam):
+    return [np.asarray(getattr(cam, f)) for f in ("top_left", "top_right", "bottom_left")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "--preset", "glassbox", "--width", "32", "--height", "16"],
+    ["render", "--preset", "glassbox", "--width", "32", "--height", "16", "--bounces", "0"],
+    ["render", "--preset", "glassbox", "--width", "24", "--bounces", "3", "--mode", "path"],
+])
+def test_render_setup_is_the_jax_cli_setup(argv, monkeypatch, tmp_path):
+    jscene, jcfg = _jax_cli_setup(argv, monkeypatch, tmp_path)
+    scene, cfg = cli.render_setup(cli.parser().parse_args(argv))
+    for got, want in zip(_camera_corners(scene.camera), _camera_corners(jscene.camera)):
+        np.testing.assert_allclose(got.astype(np.float64), want, rtol=0, atol=1e-6)
+    for f in ("width", "height", "max_bounces", "mode", "use_dof"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+
+
+def test_bounces_zero_keeps_the_preset_bounces():
+    _, preset_cfg = presets.glass_sphere_box()
+    _, cfg = cli.render_setup(cli.parser().parse_args(
+        ["render", "--preset", "glassbox", "--width", "16", "--bounces", "0"]))
+    assert preset_cfg.max_bounces == 5 and cfg.max_bounces == 5

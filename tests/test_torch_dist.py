@@ -7,15 +7,23 @@ port), each spawn with a timeout of its own.
   the JAX package's (today's) bit for bit; a windowed draw equals the
   slice of the global draw; a path traced on a slice of the rays at their
   lanes equals the slice of the whole frame's, bit for bit.
-* ``render_sharded`` on 2 ranks equals the 1-rank frame bit for bit, in
-  whitted mode (glassbox 16x8, depth 2) and path mode (monu_like 16x8, 2
-  bounces; 128 pixels, so no pad lane); the 1-rank frames hold to the JAX ``render_sharded`` on a
+* ``render_sharded`` on 2 and 4 ranks equals the 1-rank frame bit for
+  bit, in whitted mode (glassbox 16x8, depth 2) and path mode (monu_like
+  16x8, 2 bounces; 128 pixels, so no pad lane), and in the two frames
+  that share the global wavefront: the path frame with
+  ``bounce_reorder="always"`` (the state gathered at each reorder; on 4
+  ranks rank 0's lanes all miss at bounce 0, so the bounce loop must stop
+  on every rank together) and glassbox whitted with random light choice,
+  two point lights and an area light (light samples drawn at the global
+  queue slot).  The 1-rank frames hold to the JAX ``render_sharded`` on a
   1-device mesh run op by op (``disable_jit``) within the port's
   tolerances: tests/test_torch_render.py's path rule (mean absolute
   difference <= 1e-4, at most 1% of pixels off by more than 1e-3) and
   tests/test_torch_whitted.py's queue rule (at most 1% of pixels off by
   more than 1e-4, median difference <= 1e-6).  An uneven 13x11 path
-  frame (143 pixels padded to 144) has the right shape and is finite.
+  frame (143 pixels padded to 144) has the right shape and is finite; a
+  window of lanes of a reordering wavefront without the other ranks is
+  refused.
 * A (2, 2) ``train_demo`` on 4 ranks (glassbox 16x16 in path mode, 16
   march steps): the loss within 1e-5 relative and each gradient within
   relative L2 1e-4 of the 1-rank step (PERF.md's gradient gate), and the
@@ -38,8 +46,8 @@ import numpy as np
 import pytest
 import torch
 
-from voxtracer_torch.core.rng import (hash_bits, hash_normal, make_key, threefry_bits,
-                                      threefry_uniform)
+from voxtracer_torch.core.rng import (fold_in, hash_bits, hash_normal, make_key,
+                                      threefry_bits, threefry_uniform)
 from voxtracer_torch.diff.volumetric import mse_loss, params_from_scene, value_and_grad
 from voxtracer_torch.dist import multihost
 from voxtracer_torch.dist.mesh import make_mesh, pad_to_multiple, render_sharded
@@ -53,29 +61,56 @@ torch.set_num_threads(1)
 SPAWN_TIMEOUT = 180.0
 
 
-def _scene(name, w, h, bounces, mode=None):
+# the random-light whitted frame's lights: two point lights and one area
+# light, (px, py, pz, r, g, b) and (px, py, pz, r, g, b, mult, radius)
+RANDOM_POINTS = ((0.83, 1.57, -1.21, 2.0, 2.0, 2.0), (-1.0, 1.2, -0.8, 1.0, 0.9, 0.8))
+RANDOM_AREA = ((0.3, 1.8, -0.5, 1.0, 1.0, 1.0, 0.5, 0.2),)
+
+
+def _scene(name, w, h, bounces, mode=None, **cfg_kw):
+    """A frame's scene and config; cfg_kw replace config fields, and
+    random_lights=True gives glassbox the RANDOM_* lights with random
+    light choice."""
+    random_lights = cfg_kw.pop("random_lights", False)
     if name == "monu_like":
         scene, cfg = presets.monu_like_path(w, h, gridsize=16, bounces=bounces)
     else:
         scene, cfg = presets.glass_sphere_box(w, h)
         cfg = dataclasses.replace(cfg, max_bounces=bounces)
+    if random_lights:
+        from voxtracer_torch.scene.lights import make_lights
+
+        scene = dataclasses.replace(scene, lights=make_lights(point=RANDOM_POINTS,
+                                                              area=RANDOM_AREA))
+        cfg_kw["deterministic_lights"] = False
     if mode:
-        cfg = dataclasses.replace(cfg, mode=mode)
-    return scene, cfg
+        cfg_kw["mode"] = mode
+    return scene, dataclasses.replace(cfg, **cfg_kw)
 
 
-FRAMES = {"whitted": ("glassbox", 16, 8, 2, None), "path": ("monu_like", 16, 8, 2, None),
-          "uneven": ("glassbox", 13, 11, 2, "path")}
+# frame -> (preset, width, height, bounces, mode, config fields).  "reorder"
+# sorts its bounces (on 4 ranks every lane of rank 0 misses at bounce 0:
+# the top two rows are sky); "random_whitted" draws light samples by queue
+# slot
+FRAMES = {"whitted": ("glassbox", 16, 8, 2, None, {}), "path": ("monu_like", 16, 8, 2, None, {}),
+          "uneven": ("glassbox", 13, 11, 2, "path", {}),
+          "reorder": ("monu_like", 16, 8, 2, None, dict(bounce_reorder="always")),
+          "random_whitted": ("glassbox", 16, 8, 2, None, dict(random_lights=True))}
 
 
 def _render_frames():
-    """Every frame of FRAMES through render_sharded on this process's mesh."""
+    """Every frame of FRAMES through render_sharded on this process's mesh
+    -> {frame: image}, and under "<frame> stats" render_sharded's stats
+    without the times."""
     torch.set_num_threads(1)
     mesh = make_mesh(device="cpu")
     out = {}
-    for what, args in FRAMES.items():
-        scene, cfg = _scene(*args)
-        out[what] = render_sharded(scene, cfg, make_key(0), 1, mesh).numpy()
+    for what, (name, w, h, bounces, mode, kw) in FRAMES.items():
+        scene, cfg = _scene(name, w, h, bounces, mode, **kw)
+        stats = {}
+        out[what] = render_sharded(scene, cfg, make_key(0), 1, mesh, stats).numpy()
+        stats["exchanges"] = [(k, b) for k, b, _ in stats["exchanges"]]
+        out[f"{what} stats"] = stats
     return out
 
 
@@ -138,9 +173,11 @@ def test_path_traced_on_a_slice_of_lanes_is_the_slice_of_the_frame():
 
 @pytest.fixture(scope="module")
 def frames():
-    """{rank count: {frame: image}}: 1 rank in this process, 2 spawned."""
+    """{rank count: {frame: image}}: 1 rank in this process, 2 and 4
+    spawned."""
     return {1: _render_frames(),
-            2: multihost.spawn(_render_frames, 2, device="cpu", timeout=SPAWN_TIMEOUT)}
+            2: multihost.spawn(_render_frames, 2, device="cpu", timeout=SPAWN_TIMEOUT),
+            4: multihost.spawn(_render_frames, 4, device="cpu", timeout=SPAWN_TIMEOUT)}
 
 
 @pytest.mark.parametrize("what", ["whitted", "path"])
@@ -148,6 +185,49 @@ def test_two_ranks_render_the_one_rank_image_bit_for_bit(frames, what):
     one = frames[1][what]
     for rank_out in frames[2]:
         np.testing.assert_array_equal(rank_out[what], one)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("what", ["reorder", "random_whitted"])
+def test_ranks_share_the_global_wavefront_bit_for_bit(frames, what, ranks):
+    """The frames that need the one global wavefront: every rank of 2 and
+    of 4 gives the 1-rank image bit for bit, after the same exchanges
+    (the reorder's state gathers; one queue indicator sum an iteration)."""
+    one = frames[1][what]
+    kinds = {k for k, _ in frames[1][f"{what} stats"]["exchanges"]}
+    assert kinds == ({"alive", "reorder", "unpermute"} if what == "reorder" else {"queue"})
+    for rank_out in frames[ranks]:
+        np.testing.assert_array_equal(rank_out[what], one)
+        assert ([k for k, _ in rank_out[f"{what} stats"]["exchanges"]]
+                == [k for k, _ in frames[1][f"{what} stats"]["exchanges"]])
+
+
+def test_four_ranks_render_the_one_rank_image_bit_for_bit(frames):
+    """The frames that need no exchange, on 4 ranks (the uneven one: 143
+    pixels padded to 144, 36 lanes a rank, as on 2)."""
+    for rank_out in frames[4]:
+        for what in ("whitted", "path"):
+            np.testing.assert_array_equal(rank_out[what], frames[1][what])
+            assert rank_out[f"{what} stats"]["exchanges"] == []
+        np.testing.assert_array_equal(rank_out["uneven"], frames[2][0]["uneven"])
+
+
+def test_a_reorder_frame_finishes_when_one_rank_has_no_hit(frames):
+    """On 4 ranks rank 0's 32 lanes all miss at bounce 0, so from bounce 1
+    on it has no active ray; the bounce loop stops only when no rank has
+    one (a rank-local stop would leave its peers waiting in the next
+    gather: the spawn would time out), and every rank sees the same
+    reorders."""
+    scene, cfg = _scene("monu_like", 16, 8, 2, bounce_reorder="always")
+    px, py = integrator._pixel_grid(cfg, "cpu")
+    u = threefry_uniform(fold_in(fold_in(make_key(0), 0), 100), (32, 2), "cpu", (0, 128))
+    o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px[:32] + u[:, 0],
+                                   py[:32] + u[:, 1])
+    rec = integrator.find_nearest_world(scene, o.contiguous(), d, torch.ones(32, dtype=torch.bool))
+    assert not rec["hit"].any()
+    stats = [r["reorder stats"]["exchanges"] for r in frames[4]]
+    assert all(s == stats[0] for s in stats) and ("reorder", 21 * 128 * 4) in stats[0]
+    np.testing.assert_array_equal(frames[4][0]["reorder"], frames[1]["reorder"])
 
 
 def test_uneven_pixel_count(frames):
@@ -161,12 +241,14 @@ def test_uneven_pixel_count(frames):
     assert not np.array_equal(frames[1]["uneven"], img)
 
 
-def _jax_render_sharded(name, w, h, bounces):
+def _jax_render_sharded(name, w, h, bounces, random_lights=False, **cfg_kw):
     import jax
+    import jax.numpy as jnp
 
     from voxtracer.config import RenderConfig as JaxConfig
     from voxtracer.dist import mesh as jax_mesh
     from voxtracer.scene import presets as jax_presets
+    from voxtracer.scene.lights import make_lights
 
     from test_torch_render import _jax_scene
 
@@ -176,33 +258,76 @@ def _jax_render_sharded(name, w, h, bounces):
     else:
         jscene, jcfg = jax_presets.glass_sphere_box(w, h)
         jcfg = dataclasses.replace(jcfg, max_bounces=bounces)
+    if random_lights:
+        lights = make_lights(point=RANDOM_POINTS, area=RANDOM_AREA)
+        jscene = jscene.replace(lights=jax.tree.map(jnp.asarray, lights))
+        cfg_kw["deterministic_lights"] = False
+    jcfg = dataclasses.replace(jcfg, **cfg_kw)
     with jax.disable_jit():
         return np.asarray(jax_mesh.render_sharded(jscene, jcfg, jax.random.PRNGKey(0), 1,
                                                   jax_mesh.make_mesh(1)))
 
 
-def test_one_rank_holds_to_the_jax_render_sharded(frames):
-    """The port's presets build the JAX package's arrays (their parity is
-    tests/test_torch_render.py's), so each side renders its own."""
-    want = _jax_render_sharded("monu_like", 16, 8, 2)
-    diff = np.abs(frames[1]["path"] - want)
+def _held_as_a_path_frame(got, want):
+    """tests/test_torch_render.py's path rule."""
+    diff = np.abs(got - want)
     assert diff.mean() <= 1e-4, diff.mean()
     assert (diff.max(-1) > 1e-3).mean() <= 0.01
-    want = _jax_render_sharded("glassbox", 16, 8, 2)
-    diff = np.abs(frames[1]["whitted"] - want)
+
+
+def _held_as_a_whitted_frame(got, want):
+    """tests/test_torch_whitted.py's queue rule."""
+    diff = np.abs(got - want)
     assert (diff > 1e-4).mean() <= 0.01, f"{(diff > 1e-4).mean():.2%} (max {diff.max()})"
     assert np.median(diff) <= 1e-6 and float(want.mean()) > 0.02
 
 
-def test_a_frame_that_reorders_or_draws_by_queue_lane_is_refused():
-    scene, cfg = _scene("monu_like", 16, 8, 2)
-    with pytest.raises(ValueError, match="reorders"):
-        render_sharded(scene, dataclasses.replace(cfg, bounce_reorder="always"), make_key(0), 1,
-                       make_mesh(device="cpu"))
-    scene, cfg = _scene("glassbox", 16, 8, 2)
-    with pytest.raises(ValueError, match="queue"):
-        render_sharded(scene, dataclasses.replace(cfg, deterministic_lights=False), make_key(0),
-                       1, make_mesh(device="cpu"))
+def test_one_rank_holds_to_the_jax_render_sharded(frames):
+    """The port's presets build the JAX package's arrays (their parity is
+    tests/test_torch_render.py's), so each side renders its own."""
+    _held_as_a_path_frame(frames[1]["path"], _jax_render_sharded("monu_like", 16, 8, 2))
+    _held_as_a_whitted_frame(frames[1]["whitted"], _jax_render_sharded("glassbox", 16, 8, 2))
+
+
+def test_one_rank_reorder_frame_holds_to_the_jax_render_sharded(frames, monkeypatch):
+    """monu_like 16x8, 2 bounces, bounce_reorder="always": the JAX
+    render_sharded sorts its whole wavefront before bounce 1.  The
+    reordered frame parts from the unordered one on 4 of the 128 pixels
+    (3.1%: on this frame another key moves only 11% of the pixels), more
+    than the 1% the path rule lets through, so the frame holds to the JAX
+    one only if the reorder ran."""
+    monkeypatch.setenv("VOXTRACER_PALLAS", "0")
+    got = frames[1]["reorder"]
+    _held_as_a_path_frame(got, _jax_render_sharded("monu_like", 16, 8, 2,
+                                                   bounce_reorder="always"))
+    assert 0.02 < got.mean() < 10.0
+    assert (np.abs(got - frames[1]["path"]).max(-1) > 1e-3).mean() > 0.02
+
+
+def test_one_rank_random_light_whitted_frame_holds_to_the_jax_render_sharded(frames):
+    """Glassbox 16x8, depth 2, two point lights and one area light, random
+    light choice: the JAX render_sharded runs the global FIFO queue, each
+    branch drawing its light choice and area sample at its batch slot.
+    The frame differs from the all-lights sum of the same scene (on 10 of
+    its 128 pixels by more than 1e-3: the rest see the flat sky or the
+    unlit side)."""
+    got = frames[1]["random_whitted"]
+    _held_as_a_whitted_frame(got, _jax_render_sharded("glassbox", 16, 8, 2, random_lights=True))
+    scene, cfg = _scene("glassbox", 16, 8, 2, random_lights=True)
+    summed = render_sharded(scene, dataclasses.replace(cfg, deterministic_lights=True),
+                            make_key(0), 1, make_mesh(device="cpu")).numpy()
+    assert (np.abs(got - summed).max(-1) > 1e-3).mean() > 0.05
+
+
+def test_a_window_of_lanes_without_the_other_ranks_cannot_reorder():
+    """trace_path given a window of lanes of a reordering wavefront and no
+    collectives refuses it: the sort needs the other ranks' lanes."""
+    scene, cfg = _scene("monu_like", 16, 8, 2, bounce_reorder="always")
+    px, py = integrator._pixel_grid(cfg, scene.device)
+    o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px, py)
+    with pytest.raises(ValueError, match="reorder"):
+        integrator.trace_path(scene, cfg, o[:64].contiguous(), d[:64], make_key(0),
+                              lanes=(0, 128))
 
 
 # ------------------------------------------------------------------ train

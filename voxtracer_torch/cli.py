@@ -86,17 +86,27 @@ def autofocus(scene, cfg, defocus: float):
     return dataclasses.replace(scene, camera=cam), focal
 
 
-def cmd_render(args) -> None:
-    size = {}
+def render_setup(args):
+    """``cli render``'s scene and config, set up as the JAX CLI sets them
+    up (voxtracer/cli.py:39-51): the preset built at its own size (its
+    camera keeps the preset's aspect), then --width (and --height, default
+    the width) replacing only the config's size; --mode, a non-zero
+    --bounces and --dof replacing the preset's.  -> (scene on the CPU,
+    cfg)."""
+    scene, cfg = PRESETS[args.preset]()
     if args.width:
-        size = dict(width=args.width, height=args.height or args.width)
-    scene, cfg = PRESETS[args.preset](**size)
+        cfg = dataclasses.replace(cfg, width=args.width, height=args.height or args.width)
     if args.mode:
         cfg = dataclasses.replace(cfg, mode=args.mode)
-    if args.bounces is not None:
+    if args.bounces:
         cfg = dataclasses.replace(cfg, max_bounces=args.bounces)
     if args.dof:
         cfg = dataclasses.replace(cfg, use_dof=True)
+    return scene, cfg
+
+
+def cmd_render(args) -> None:
+    scene, cfg = render_setup(args)
     device = torch.device(args.device)
     scene = scene.to(device)
     if args.dof:
@@ -231,7 +241,8 @@ def cmd_info(args) -> None:
     print("devices:", ["cpu"] + [f"cuda:{i} {torch.cuda.get_device_name(i)}" for i in range(n)])
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
+    """The command line's parser (``main``'s)."""
     ap = argparse.ArgumentParser(prog="voxtracer_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render", help="render a preset to PNG")
@@ -240,7 +251,7 @@ def main(argv=None) -> None:
                    help="default: the preset's (glassbox renders whitted)")
     r.add_argument("--width", type=int)
     r.add_argument("--height", type=int)
-    r.add_argument("--bounces", type=int)
+    r.add_argument("--bounces", type=int, default=0, help="0: the preset's")
     r.add_argument("--spp", type=int, default=1)
     r.add_argument("--frames", type=int, default=1)
     r.add_argument("--seed", type=int, default=0)
@@ -278,7 +289,11 @@ def main(argv=None) -> None:
     v.set_defaults(fn=cmd_live)
     i = sub.add_parser("info", help="the torch build and its devices")
     i.set_defaults(fn=cmd_info)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
     args.fn(args)
 
 

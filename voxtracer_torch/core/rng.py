@@ -73,11 +73,14 @@ def key_seed(key: tuple) -> int:
 def counters(shape, device, lanes=None, axis: int = -1) -> torch.Tensor:
     """The int64 counter of each element of `shape`, flat in row-major
     order.  Without `lanes`: 0 .. prod(shape) - 1.  With lanes = (first,
-    total): `shape` is a window of a global array whose `axis` holds
-    `total` lanes, this one lanes [first, first + shape[axis]) of them, and
-    each element gets the counter it has in the global array (a rank of a
-    sharded render draws its lanes of the global streams without drawing
-    the rest)."""
+    total): `shape` holds some of the `total` lanes along `axis` of a
+    global array, and each element gets the counter it has in the global
+    array (a rank of a sharded render draws its lanes of the global
+    streams without drawing the rest).  first: an int, the lanes [first,
+    first + shape[axis]) of a window; or an int64 tensor of shape[axis]
+    global lane indices, in any order (the queue slots of a sharded
+    whitted batch: a [3, W] draw gives slot s of row c the counter
+    c * W + s)."""
     n = math.prod(shape)
     if lanes is None:
         return torch.arange(n, dtype=torch.int64, device=device)
@@ -87,7 +90,10 @@ def counters(shape, device, lanes=None, axis: int = -1) -> torch.Tensor:
     gshape[axis] = total
     idx = torch.zeros((), dtype=torch.int64, device=device)
     for a, size in enumerate(shape):
-        c = torch.arange(size, dtype=torch.int64, device=device) + (first if a == axis else 0)
+        if a == axis and torch.is_tensor(first):
+            c = first.to(device=device, dtype=torch.int64)
+        else:
+            c = torch.arange(size, dtype=torch.int64, device=device) + (first if a == axis else 0)
         view = [1] * len(shape)
         view[a] = size
         idx = idx + c.reshape(view) * math.prod(gshape[a + 1:])

@@ -5,7 +5,7 @@ The reference's only parallelism is a scanline ``for_each(par)`` + AVX2
 packets (renderer.cpp:1662-1673).  Here the pixel batch shards over the
 ranks of a mesh's axis: each rank traces a contiguous slice of the
 lanes, the scene is replicated, and the bands are gathered at the end;
-no other collective is needed, since pixels are disjoint.
+pixels are disjoint, so most frames need no other collective.
 
 A sharded frame is the JAX package's ``render_sharded``: the pixel count
 is padded to a multiple of the rank count (``n_pad``; pad lanes trace
@@ -16,17 +16,28 @@ is indexed over the global lanes, as XLA's partitioner keeps its
 counters global: a rank draws its own lanes of each global stream
 (``core.rng.counters``).  So the image equals the one-rank image bit for
 bit whenever H*W is a multiple of the rank count; otherwise a path frame
-draws over the n_pad lanes, as the JAX package's does.  The path
-integrator's bounce reorder sorts the whole wavefront and the branch
-queue of whitted draws area-light samples by queue lane, so a frame that
-needs either is refused; a whitted frame runs the queue in its exact
-order (``whitted_queue(exact=True)``), whose pixels do not depend on the
-other rays of the queue.
+draws over the n_pad lanes, as the JAX package's does.
+
+Two frames need more than the ranks' own lanes, since the JAX package
+runs them on the one global wavefront; ``RankComm`` carries their
+exchanges.  The path integrator's bounce reorder sorts the whole
+wavefront: each reorder gathers every rank's packed state, every rank
+sorts it as one process would and keeps its window, and the radiance
+goes back to its pixel through the gathered first-lane ids
+(``integrator._trace_path_reordered``).  The whitted branch queue draws
+random light choices and area-light samples at a branch's slot in the
+global queue: every row keeps its global queue position, and one sum of
+an indicator of the children's keys a queue iteration places each child
+(``integrator._exact_queue``).  A whitted frame whose draws do not depend
+on the slot (every light summed, no area light) runs each rank's rays as
+a queue of their own, with no exchange.  Either way the queue runs in its
+exact order, whose pixels do not depend on how the rays are split.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -135,6 +146,39 @@ def all_reduce_sum(mesh: Mesh, *tensors) -> list:
     return out
 
 
+class RankComm:
+    """The collectives of the ranks along a mesh's first axis that share one
+    wavefront (the hook of ``integrator.trace_path`` and ``whitted_queue``;
+    one rank: identities).  ``gather(t, what)``: every rank's t joined
+    along its last axis, in rank order; ``sum(t, what)``: the elementwise
+    sum over the ranks.  With a `log` list, each exchange appends (what,
+    the bytes of its result on this rank, ms), the device synchronised
+    around it."""
+
+    def __init__(self, mesh: Mesh, log: list | None = None):
+        self.mesh, self.log = mesh, log
+
+    def _timed(self, what, fn, t):
+        if self.log is None:
+            return fn(t)
+        sync = t.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn(t)
+        if sync:
+            torch.cuda.synchronize(t.device)
+        self.log.append((what, out.numel() * out.element_size(),
+                         (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def gather(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        return self._timed(what, lambda x: torch.cat(all_gather(self.mesh, x), dim=-1), t)
+
+    def sum(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        return self._timed(what, lambda x: all_reduce_sum(self.mesh, x)[0], t)
+
+
 def _lane_pixels(cfg, first: int, m: int, n: int, dev):
     """Pixel corner coordinates of lanes [first, first + m) of the padded
     scanline order (pad lanes past n: pixel (0, 0))."""
@@ -145,13 +189,18 @@ def _lane_pixels(cfg, first: int, m: int, n: int, dev):
     return px, py
 
 
-def render_sharded(scene, cfg, key, spp: int, mesh: Mesh):
+def render_sharded(scene, cfg, key, spp: int, mesh: Mesh, stats: dict | None = None):
     """Data-parallel render: pixels sharded over the mesh's first axis ->
     the full [H, W, 3] radiance image, on every rank, on the scene's
-    device (the JAX package's ``render_sharded``)."""
+    device (the JAX package's ``render_sharded``).  A path frame that
+    reorders its bounces and a whitted frame whose light samples depend on
+    the queue slot exchange what the one global wavefront needs
+    (``RankComm``); every other frame exchanges only the image.  With a
+    `stats` dict: "exchanges", the (what, bytes, ms) of each exchange of
+    the frame's wavefronts, and in whitted mode "queue_iterations", a
+    sample's queue iterations."""
     from voxtracer_torch.render.camera import primary_rays
-    from voxtracer_torch.render.integrator import (find_nearest_world, path_reorders,
-                                                   trace_path, whitted_queue)
+    from voxtracer_torch.render.integrator import find_nearest_world, trace_path, whitted_queue
     from voxtracer_torch.render.sky import sample_sky
 
     n_dev = mesh.shape[0]
@@ -161,12 +210,10 @@ def render_sharded(scene, cfg, key, spp: int, mesh: Mesh):
     m = n_pad // n_dev
     lanes = (mesh.coords[0] * m, n_pad)
     dev = scene.device
-    if cfg.mode not in ("primary", "whitted") and path_reorders(scene, cfg, n_pad):
-        raise ValueError("render_sharded: this path frame reorders its bounces, which sorts "
-                         "the whole wavefront; a rank cannot trace its lanes alone")
-    if cfg.mode == "whitted" and (not cfg.deterministic_lights or scene.lights.n_area):
-        raise ValueError("render_sharded: this whitted frame draws light samples by queue "
-                         "lane (random light choice or area lights)")
+    comm = RankComm(mesh, None if stats is None else stats.setdefault("exchanges", []))
+    # whitted draws light samples at a branch's queue slot unless every
+    # light is summed and none is an area light
+    by_slot = not cfg.deterministic_lights or scene.lights.n_area > 0
     px, py = _lane_pixels(cfg, lanes[0], m, n, dev)
     deterministic = cfg.mode in ("primary", "whitted")
     acc = torch.zeros((m, 3), dtype=torch.float32, device=dev)
@@ -186,9 +233,13 @@ def render_sharded(scene, cfg, key, spp: int, mesh: Mesh):
             sky = sample_sky(scene.sky, d, cfg.activate_sky, cfg.sky_fallback)
             val = torch.where(rec["hit"][:, None], scene.materials.albedo[rec["mat"].long()], sky)
         elif cfg.mode == "whitted":
-            val = whitted_queue(scene, cfg, o, d, cfg.max_bounces, exact=True)[0]
+            shared = dict(lanes=lanes, comm=comm) if by_slot else {}
+            val, iters, _ = whitted_queue(scene, cfg, o, d, cfg.max_bounces, exact=True,
+                                          **shared)
+            if stats is not None:
+                stats.setdefault("queue_iterations", []).append(iters)
         else:
-            val = trace_path(scene, cfg, o, d, k, lanes=lanes)
+            val = trace_path(scene, cfg, o, d, k, lanes=lanes, comm=comm)
         acc = acc + val
     flat = torch.cat(all_gather(mesh, acc / spp))
     return flat[:n].reshape(h, w, 3)

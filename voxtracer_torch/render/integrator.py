@@ -253,8 +253,8 @@ def find_nearest_world(scene: Scene, o, d, active, skip_lo: int = 1, skip_hi: in
             vol_enabled = torch.ones(vols.n, dtype=torch.bool, device=o3.device)
         res = dda.traverse(*_vol_args(scene), o3, d3,
                            torch.full((o3.shape[0],), BIG, dtype=F32, device=o3.device),
-                           active, vol_enabled, skip_lo, skip_hi, vols.bricks.reshape(-1),
-                           vols.bricksize)
+                           active, vol_enabled, skip_lo, skip_hi,
+                           bricks_flat=vols.bricks.reshape(-1), bricksize=vols.bricksize)
     t, vol = res["t"], res["vol"]
     mat = torch.where(res["hit"], res["cell"], MAT_NONE)
     nrm = (res["nx"], res["ny"], res["nz"])
@@ -723,7 +723,17 @@ def _reorder_perm(pk, lo, span):
     return torch.sort(_morton_key(pk, lo, span), stable=True)[1]
 
 
-def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key):
+def _any_active(state, comm):
+    """Whether any ray is still active: on this rank, or with `comm` on
+    any rank of the wavefront (one sum over the ranks)."""
+    alive = state["active"].any()
+    if comm is not None:
+        alive = comm.sum(alive.to(torch.int32).reshape(1), "alive")[0] > 0
+    return bool(alive)
+
+
+def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key, lanes=None,
+                          comm=None):
     """The bounce loop with the wavefront re-clustered in space: before
     bounce 1 and then every cfg.bounce_reorder_period-th bounce the state
     is sorted by ``_morton_key`` (one stable sort and one gather of the
@@ -732,24 +742,42 @@ def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key):
     Bounce 0 keeps the camera's order.  The state carries each ray's first
     lane, and the radiance goes back to it at the end by the inverse
     permutation.  -> (radiance [n, 3], the state's light-kill flags [n] or
-    None), both in the first order."""
+    None), both in the first order.
+
+    With lanes = (first, total) and `comm` (the collectives of the ranks
+    that share one wavefront of `total` rays, ``dist.mesh.RankComm``) this
+    rank holds lanes [first, first + n): each reorder gathers every rank's
+    packed state, sorts the whole wavefront as one process would and keeps
+    this rank's window of it, the bounces draw at the global lanes, the
+    loop stops when no lane of any rank is active, and the radiance comes
+    back to its first lane through the gathered first-lane ids.  The
+    result is the window's slice of the one-process result, bit for bit."""
     n, dev = state["active"].shape[0], state["active"].device
+    first, total = (0, n) if lanes is None else lanes
     lo, hi = _world_bounds(scene)
     span = torch.clamp(hi - lo, min=1e-6)
     per = max(cfg.bounce_reorder_period, 1)
-    pix = torch.arange(n, dtype=F32, device=dev)
+    pix = torch.arange(first, first + n, dtype=F32, device=dev)
     for depth in range(cfg.max_bounces + 1):
-        if not bool(state["active"].any()):
+        if not _any_active(state, comm):
             break
         if depth > 0 and (depth - 1) % per == 0:
             pk = _pack_path(state, pix)
-            state, pix = _unpack_path(pk.index_select(1, _reorder_perm(pk, lo, span)))
-        state = _bounce_core(scene, cfg, state, fold_in(key, depth))
-    rad = cstack(_apply_deferred_sky(scene, cfg, state))
-    inv = torch.empty(n, dtype=torch.int64, device=dev)
-    inv[pix.to(torch.int64)] = torch.arange(n, device=dev)
-    in_light = state.get("in_light")
-    return rad.index_select(0, inv), None if in_light is None else in_light.index_select(0, inv)
+            if comm is not None:
+                pk = comm.gather(pk, "reorder")
+            perm = _reorder_perm(pk, lo, span)[first:first + n]
+            state, pix = _unpack_path(pk.index_select(1, perm))
+        state = _bounce_core(scene, cfg, state, fold_in(key, depth), lanes)
+    rows = list(_apply_deferred_sky(scene, cfg, state)) + [pix]
+    if "in_light" in state:
+        rows.append(state["in_light"].to(F32))
+    out = torch.stack(rows)
+    if comm is not None:
+        out = comm.gather(out, "unpermute")
+    inv = torch.empty(total, dtype=torch.int64, device=dev)
+    inv[out[3].to(torch.int64)] = torch.arange(total, device=dev)
+    out = out.index_select(1, inv[first:first + n])
+    return out[:3].T.contiguous(), out[4] > 0.5 if len(rows) > 4 else None
 
 
 def path_reorders(scene: Scene, cfg: RenderConfig, n: int) -> bool:
@@ -760,7 +788,7 @@ def path_reorders(scene: Scene, cfg: RenderConfig, n: int) -> bool:
 
 
 def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = False,
-               lanes=None):
+               lanes=None, comm=None):
     """Full stochastic light transport; o, d: [N, 3] -> radiance [N, 3],
     and with return_aux a dict with the per-ray light-kill flags
     ``in_light`` [N] (renderer.cpp:1437-1450; all false unless
@@ -770,8 +798,10 @@ def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = Fa
     between bounces (``_trace_path_reordered``).  The rays draw their
     samples at `lanes` = (first, total), lanes [first, first + N) of a
     wavefront of total rays (``core.rng.counters``; None: (0, N)).  A
-    re-sorted wavefront is the whole one, so `lanes` other than (0, N)
-    refuse a frame that reorders."""
+    re-sorted wavefront is the whole one, so a window of lanes other than
+    (0, N) traces a frame that reorders only with `comm`, the collectives
+    of the ranks that hold the other lanes; without it such a frame is
+    refused."""
     n, dev = o.shape[0], o.device
     zero3 = tuple(torch.zeros(n, dtype=F32, device=dev) for _ in range(3))
     state = dict(
@@ -787,10 +817,11 @@ def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = Fa
     if lanes is not None and tuple(lanes) == (0, n):
         lanes = None
     if path_reorders(scene, cfg, n if lanes is None else lanes[1]):
-        if lanes is not None:
+        if lanes is not None and comm is None:
             raise ValueError("the bounce reorder sorts the whole wavefront: a window of "
-                             f"lanes {tuple(lanes)} cannot trace its share alone")
-        rad, in_light = _trace_path_reordered(scene, cfg, state, key)
+                             f"lanes {tuple(lanes)} cannot trace its share without the "
+                             "other ranks (comm)")
+        rad, in_light = _trace_path_reordered(scene, cfg, state, key, lanes, comm)
     else:
         for depth in range(cfg.max_bounces + 1):
             if not bool(state["active"].any()):
@@ -957,168 +988,236 @@ def _sum_in_branch_order(n, log, depth):
     return img
 
 
-def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int, exact: bool = False):
+def _queue_batch(scene: Scene, cfg: RenderConfig, batch, live, mtab, lanes=None):
+    """One batch of the branch queue: the rows `batch` [B, cols] of the
+    packed queue, of which `live` [B] hold a branch: one nearest
+    traversal, the emissive and NEE radiance and up to two weighted
+    children per branch (metal mirror or refracted branch; reflected glass
+    branch), those whose weight is at most cfg.whitted_cull_eps invalid.
+    The light samples are drawn at `lanes` (``core.rng.counters``; None:
+    the batch's rows).  A queue with the branch-code column gives child c
+    of code k the code 2k + c - 1.  -> (contribution, a component tuple;
+    the children [2B, cols], child 1 of every row, then child 2 of every
+    row; valid [2B])."""
+    b, dev = batch.shape[0], batch.device
+    zero = (torch.zeros(b, dtype=F32, device=dev),) * 3
+    to, td = batch[:, _QO:_QO + 3], batch[:, _QD:_QD + 3]
+    toc, tdc = cpack(to), cpack(td)
+    w = cpack(batch[:, _QW:_QW + 3])
+    in_glass = batch[:, _QGL] > 0.5
+    dep = batch[:, _QDEP].to(torch.int32)
+    pixf = batch[:, _QPIX]
+    code = batch[:, _QCODE] if batch.shape[1] > _QCODE else None
+
+    rec = find_nearest_world(scene, to, td, live)
+    t, mat, vol = rec["t"], rec["mat"], rec["vol"]
+    nrm = (rec["nx"], rec["ny"], rec["nz"])
+    in_glass = torch.where(rec["prim_adopt"], rec["prim_inside"], in_glass)
+    sky = cpack(sample_sky(scene.sky, td, cfg.activate_sky, cfg.sky_fallback))
+    miss = live & (mat == MAT_NONE)
+    contrib = cwhere(miss, cmul(w, sky), zero)
+    live_hit = live & ~miss
+
+    mrow = lookup_rows(mtab, torch.clamp(mat, 0, 255))
+    alb = (mrow[:, 0], mrow[:, 1], mrow[:, 2])
+    emis, ior = mrow[:, 3], mrow[:, 4]
+    is_metal = (mat >= METAL_HIGH) & (mat <= METAL_LOW)
+    is_glass_m = mat == GLASS
+    is_smoke = (mat >= SMOKE_LOW_DENSITY) & (mat <= SMOKE_PLAYER)
+    is_emissive = mat == EMISSIVE
+    is_model = (mat > EMISSIVE) & (mat != MAT_NONE)
+    is_diffuse = (mat < METAL_HIGH) | is_model
+
+    # medium march, skipped on iterations with no ray inside a medium
+    march = live_hit & in_glass & (is_glass_m | is_smoke) & (vol >= 0)
+    if bool(march.any()):
+        mode_code = torch.where(is_glass_m, EXIT_GLASS, EXIT_SMOKE).to(torch.int32)
+        in_vol, t_exit, nrm_exit = material_exit_world(scene, to, td, vol, mode_code, march)
+        t = torch.where(march, t_exit, t)
+        nrm = cwhere(march & in_vol, nrm_exit, nrm)
+        fell = march & ~in_vol
+        toc = cwhere(fell, cadd(toc, cscale(t, tdc)), toc)
+        t = torch.where(fell, 0.0, t)
+    p_hit = cadd(toc, cscale(t, tdc))
+
+    contrib = cwhere(live_hit & is_emissive, cadd(contrib, cmul(w, cscale(emis, alb))), contrib)
+    nee_mask = live_hit & is_diffuse & (dep >= 0)
+    inc = illumination(scene, cfg, p_hit, nrm, nee_mask, NO_KEY, alb, lanes)
+    contrib = cwhere(nee_mask & ~is_model, cadd(contrib, cmul(w, inc)), contrib)
+    contrib = cwhere(nee_mask & is_model, cadd(contrib, cmul(w, cmul(alb, inc))), contrib)
+
+    can_rec = dep > 0
+    refl = cunit(creflect(tdc, nrm))
+    metal_go = live_hit & is_metal & can_rec
+    mo = coffset(p_hit, nrm)
+    glass_mask = live_hit & is_glass_m
+    smoke_mask = live_hit & is_smoke
+    media_mask = (glass_mask | smoke_mask) & can_rec
+    cos_g = torch.clamp(cdot(cneg(tdc), nrm), max=1.0)
+    ratio, r_coef, media_color = _media_split(
+        in_glass, is_glass_m, is_smoke, glass_mask, smoke_mask, march, t,
+        ior, emis, alb, cos_g)
+    refr_dir = cunit(cwhere(smoke_mask, tdc, crefract(tdc, nrm, ratio)))
+    fo = coffset(p_hit, cneg(nrm))
+    need_refr = media_mask & (r_coef < 1.0)
+    need_refl = media_mask & glass_mask & (r_coef > 0.0)
+    if not cfg.whitted_glass_split:  # a dielectric hit ends its branch
+        need_refr = need_refl = torch.zeros_like(media_mask)
+
+    # child 1: the metal mirror or the refracted branch; child 2: the
+    # reflected glass branch
+    c1 = metal_go | need_refr
+    c1_w = cwhere(metal_go, cmul(w, alb), cscale(1.0 - r_coef, cmul(w, media_color)))
+    gl = in_glass.to(F32)
+    c1_gl = torch.where(metal_go, 0.0, torch.where(media_mask, 1.0 - gl, gl))
+    w_refl = cscale(r_coef, cmul(w, media_color))
+    c2 = need_refl
+    if cfg.whitted_cull_eps > 0.0:
+        eps = cfg.whitted_cull_eps
+        c1 = c1 & (torch.maximum(torch.maximum(c1_w[0], c1_w[1]), c1_w[2]) > eps)
+        c2 = c2 & (torch.maximum(torch.maximum(w_refl[0], w_refl[1]), w_refl[2]) > eps)
+    dep_c = (dep - 1).to(F32)
+    children = torch.cat([
+        _qpack(cwhere(metal_go, mo, fo), cwhere(metal_go, refl, refr_dir), c1_w,
+               c1_gl, dep_c, pixf, None if code is None else 2.0 * code),
+        _qpack(mo, refl, w_refl, gl, dep_c, pixf, None if code is None else 2.0 * code + 1.0)])
+    return contrib, children, torch.cat([c1, c2])
+
+
+def whitted_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int, exact: bool = False,
+                  lanes=None, comm=None):
     """Iterative Whitted as a fixed-width wavefront queue over branches.
 
     All pixels' pending branches sit in one packed [5N, 12] f32 queue
     (columns as _QO.._QPIX).  Each iteration takes the first W = N rows,
-    whoever's they are: one nearest traversal, the emissive and NEE
-    radiance (a flat [3N] scatter-add per pixel and channel), then up to
-    two weighted children per branch (metal mirror or refracted branch;
-    reflected glass branch), dropped when their weight is at most
-    cfg.whitted_cull_eps.  The children are compacted stably (cumsum and
-    a position scatter) and appended behind the rest of the queue, which
-    moves down by W; past 4N the newest branches are dropped first.  The
-    loop stops when the queue is empty or after 4 * (depth + 2) + 8
-    iterations.  Per-branch maths is ``trace_whitted``'s; only each
-    pixel's summation order differs.  The queue population is read on the
-    host once per iteration.  o, d: [N, 3] -> (radiance [N, 3],
-    iterations, largest queue population).
+    whoever's they are (``_queue_batch``): one nearest traversal, the
+    emissive and NEE radiance (a flat [3N] scatter-add per pixel and
+    channel), then up to two weighted children per branch.  The children
+    are compacted stably (cumsum and a position scatter), all first
+    children before all second ones, and appended behind the rest of the
+    queue, which moves down by W; past 4N the newest branches are dropped
+    first.  The loop stops when the queue is empty or after
+    4 * (depth + 2) + 8 iterations.  Per-branch maths is
+    ``trace_whitted``'s; only each pixel's summation order differs.  The
+    queue population is read on the host once per iteration.  o, d:
+    [N, 3] -> (radiance [N, 3], iterations, largest queue population).
 
-    exact: a pixel's radiance does not depend on the other rays of the
-    queue, so any split of the rays into queues gives the same image bit
-    for bit (a sharded frame): no branch is dropped (the queue grows past
-    5N and runs until it is empty), and each pixel's contributions are
-    logged and summed in the order of their branch codes (a 13th column,
-    ``_QCODE``; ``_sum_in_branch_order``), not as the batches meet them."""
+    exact (``_exact_queue``): the same queue with no branch dropped (it
+    grows past 5N and runs until it is empty) and each pixel's
+    contributions logged and summed in the order of their branch codes
+    (a 13th column, ``_QCODE``; ``_sum_in_branch_order``), not as the
+    batches meet them.  With lanes = (first, total) and `comm` (the
+    collectives of the ranks that hold the other rays,
+    ``dist.mesh.RankComm``), these rays are lanes [first, first + N) of
+    one queue of `total` rays split over the ranks."""
+    if exact:
+        return _exact_queue(scene, cfg, o, d, depth, lanes, comm)
+    if lanes is not None or comm is not None:
+        raise ValueError("a queue split over ranks runs in its exact order (exact=True)")
     n, dev = o.shape[0], o.device
-    if exact and depth > 21:
-        raise ValueError(f"depth {depth}: branch codes past 2^23 are not exact in the "
-                         "queue's f32 columns")
-    w_, cap, ncols = n, 5 * n, _QCODE + 1 if exact else _QCODE
+    w_, cap = n, 5 * n
     one = torch.ones(n, dtype=F32, device=dev)
-    fr = torch.zeros((cap, ncols), dtype=F32, device=dev)
+    fr = torch.zeros((cap, _QCODE), dtype=F32, device=dev)
     fr[:n] = _qpack(cpack(o), cpack(d), (one, one, one), torch.zeros_like(one),
-                    torch.full_like(one, float(depth)),
-                    torch.arange(n, dtype=F32, device=dev), one if exact else None)
+                    torch.full_like(one, float(depth)), torch.arange(n, dtype=F32, device=dev))
     img = torch.zeros(3 * n, dtype=F32, device=dev)
-    log = []
-    m = scene.materials
-    mtab = torch.cat([m.albedo, m.emissive[:, None], m.ior[:, None]], dim=1)
+    mtab = _queue_table(scene)
     lane = torch.arange(w_, device=dev)
     chan = torch.arange(3, device=dev)[:, None]
-    zero = (torch.zeros(w_, dtype=F32, device=dev),) * 3
     count, it, peak = n, 0, n
-    while count > 0 and (exact or it < 4 * (depth + 2) + 8):
+    while count > 0 and it < 4 * (depth + 2) + 8:
         batch = fr[:w_]
         live = lane < min(count, w_)
-        to, td = batch[:, _QO:_QO + 3], batch[:, _QD:_QD + 3]
-        toc, tdc = cpack(to), cpack(td)
-        w = cpack(batch[:, _QW:_QW + 3])
-        in_glass = batch[:, _QGL] > 0.5
-        dep = batch[:, _QDEP].to(torch.int32)
-        pixf = batch[:, _QPIX]
-        code = batch[:, _QCODE] if exact else None
-
-        rec = find_nearest_world(scene, to, td, live)
-        t, mat, vol = rec["t"], rec["mat"], rec["vol"]
-        nrm = (rec["nx"], rec["ny"], rec["nz"])
-        in_glass = torch.where(rec["prim_adopt"], rec["prim_inside"], in_glass)
-        sky = cpack(sample_sky(scene.sky, td, cfg.activate_sky, cfg.sky_fallback))
-        miss = live & (mat == MAT_NONE)
-        contrib = cwhere(miss, cmul(w, sky), zero)
-        live_hit = live & ~miss
-
-        mrow = lookup_rows(mtab, torch.clamp(mat, 0, 255))
-        alb = (mrow[:, 0], mrow[:, 1], mrow[:, 2])
-        emis, ior = mrow[:, 3], mrow[:, 4]
-        is_metal = (mat >= METAL_HIGH) & (mat <= METAL_LOW)
-        is_glass_m = mat == GLASS
-        is_smoke = (mat >= SMOKE_LOW_DENSITY) & (mat <= SMOKE_PLAYER)
-        is_emissive = mat == EMISSIVE
-        is_model = (mat > EMISSIVE) & (mat != MAT_NONE)
-        is_diffuse = (mat < METAL_HIGH) | is_model
-
-        # medium march, skipped on iterations with no ray inside a medium
-        march = live_hit & in_glass & (is_glass_m | is_smoke) & (vol >= 0)
-        if bool(march.any()):
-            mode_code = torch.where(is_glass_m, EXIT_GLASS, EXIT_SMOKE).to(torch.int32)
-            in_vol, t_exit, nrm_exit = material_exit_world(scene, to, td, vol,
-                                                           mode_code, march)
-            t = torch.where(march, t_exit, t)
-            nrm = cwhere(march & in_vol, nrm_exit, nrm)
-            fell = march & ~in_vol
-            toc = cwhere(fell, cadd(toc, cscale(t, tdc)), toc)
-            t = torch.where(fell, 0.0, t)
-        p_hit = cadd(toc, cscale(t, tdc))
-
-        contrib = cwhere(live_hit & is_emissive,
-                         cadd(contrib, cmul(w, cscale(emis, alb))), contrib)
-        nee_mask = live_hit & is_diffuse & (dep >= 0)
-        inc = illumination(scene, cfg, p_hit, nrm, nee_mask, NO_KEY, alb)
-        contrib = cwhere(nee_mask & ~is_model, cadd(contrib, cmul(w, inc)), contrib)
-        contrib = cwhere(nee_mask & is_model,
-                         cadd(contrib, cmul(w, cmul(alb, inc))), contrib)
-        pix = pixf.to(torch.int64)
-        if exact:
-            c3 = cstack(contrib)
-            at = (live & (c3 != 0.0).any(-1)).nonzero()[:, 0]
-            log.append((pix[at], code[at].to(torch.int64), c3[at]))
-        else:
-            img.index_add_(0, (pix * 3 + chan).reshape(-1),
-                           torch.where(live, cstack(contrib).T, 0.0).reshape(-1))
-
-        can_rec = dep > 0
-        refl = cunit(creflect(tdc, nrm))
-        metal_go = live_hit & is_metal & can_rec
-        mo = coffset(p_hit, nrm)
-        glass_mask = live_hit & is_glass_m
-        smoke_mask = live_hit & is_smoke
-        media_mask = (glass_mask | smoke_mask) & can_rec
-        cos_g = torch.clamp(cdot(cneg(tdc), nrm), max=1.0)
-        ratio, r_coef, media_color = _media_split(
-            in_glass, is_glass_m, is_smoke, glass_mask, smoke_mask, march, t,
-            ior, emis, alb, cos_g)
-        refr_dir = cunit(cwhere(smoke_mask, tdc, crefract(tdc, nrm, ratio)))
-        fo = coffset(p_hit, cneg(nrm))
-        need_refr = media_mask & (r_coef < 1.0)
-        need_refl = media_mask & glass_mask & (r_coef > 0.0)
-        if not cfg.whitted_glass_split:  # a dielectric hit ends its branch
-            need_refr = need_refl = torch.zeros_like(media_mask)
-
-        # child 1: the metal mirror or the refracted branch; child 2: the
-        # reflected glass branch
-        c1 = metal_go | need_refr
-        c1_w = cwhere(metal_go, cmul(w, alb),
-                      cscale(1.0 - r_coef, cmul(w, media_color)))
-        gl = in_glass.to(F32)
-        c1_gl = torch.where(metal_go, 0.0, torch.where(media_mask, 1.0 - gl, gl))
-        w_refl = cscale(r_coef, cmul(w, media_color))
-        c2 = need_refl
-        if cfg.whitted_cull_eps > 0.0:
-            eps = cfg.whitted_cull_eps
-            c1 = c1 & (torch.maximum(torch.maximum(c1_w[0], c1_w[1]), c1_w[2]) > eps)
-            c2 = c2 & (torch.maximum(torch.maximum(w_refl[0], w_refl[1]), w_refl[2]) > eps)
-        dep_c = (dep - 1).to(F32)
-        children = torch.cat([
-            _qpack(cwhere(metal_go, mo, fo), cwhere(metal_go, refl, refr_dir), c1_w,
-                   c1_gl, dep_c, pixf, None if code is None else 2.0 * code),
-            _qpack(mo, refl, w_refl, gl, dep_c, pixf, None if code is None else 2.0 * code + 1.0)])
-        valid = torch.cat([c1, c2])
+        contrib, children, valid = _queue_batch(scene, cfg, batch, live, mtab)
+        pix = batch[:, _QPIX].to(torch.int64)
+        img.index_add_(0, (pix * 3 + chan).reshape(-1),
+                       torch.where(live, cstack(contrib).T, 0.0).reshape(-1))
         # stable compaction: each valid child's destination is its rank
         # among the valid ones; invalid children land in a spill slot
         dest = torch.cumsum(valid.to(torch.int64), 0) - 1
         nc = int(dest[-1]) + 1
         src = torch.zeros(2 * w_ + 1, dtype=torch.int64, device=dev)
-        src.scatter_(0, torch.where(valid, dest, 2 * w_),
-                     torch.arange(2 * w_, device=dev))
-
+        src.scatter_(0, torch.where(valid, dest, 2 * w_), torch.arange(2 * w_, device=dev))
         # pop the batch, append the children behind what remains
-        rem = max(count - w_, 0)
-        if not exact:
-            rem = min(rem, 4 * n - 2 * w_)
+        rem = min(max(count - w_, 0), 4 * n - 2 * w_)
         fr = torch.roll(fr, -w_, dims=0)
-        if rem + nc > fr.shape[0]:
-            fr = torch.cat([fr, torch.zeros((rem + nc - fr.shape[0], ncols), dtype=F32,
-                                            device=dev)])
         fr[rem:rem + nc] = children[src[:nc]]
         count = rem + nc
         peak = max(peak, count)
         it += 1
-    if exact:
-        return (_sum_in_branch_order(n, log, depth) if log
-                else img.reshape(n, 3)), it, peak
     return img.reshape(n, 3), it, peak
+
+
+def _queue_table(scene: Scene):
+    """The queue's [256, 5] material rows: albedo, emissive, ior."""
+    m = scene.materials
+    return torch.cat([m.albedo, m.emissive[:, None], m.ior[:, None]], dim=1)
+
+
+def _exact_queue(scene: Scene, cfg: RenderConfig, o, d, depth: int, lanes=None, comm=None):
+    """``whitted_queue(exact=True)``.  Every row carries its position in
+    the one queue of all `total` rays (an int64 side tensor: positions
+    reach 5 * total, past f32's exact integers at 1080p), and each
+    iteration takes the rows at positions below W = total, each drawing
+    its light samples at its position: its slot in the batch, as the
+    global queue draws.  A child's position is the start of the child
+    block plus its rank among all valid children, keyed (which child,
+    the parent's slot); with `comm` one sum over the ranks of a [2W]
+    uint8 indicator of those keys gives it (the children's global ranks
+    and count), so every rank keeps its own rows and knows the global
+    count.  The queue stops when no rank holds a row.
+
+    Each pixel's radiance is then the one-process queue's bit for bit,
+    on any split of the rays over ranks; it equals the JAX package's
+    global FIFO queue (``trace_whitted_iter`` on all `total` rays) wherever
+    that queue never holds more than 4 * total branches and ends within
+    its 4 * (depth + 2) + 8 iterations, up to the order of each pixel's
+    sum.  Without `comm` the rays are a queue of their own (lanes (0, N))."""
+    n, dev = o.shape[0], o.device
+    if depth > 21:
+        raise ValueError(f"depth {depth}: branch codes past 2^23 are not exact in the "
+                         "queue's f32 columns")
+    if comm is None and lanes is not None and tuple(lanes) != (0, n):
+        raise ValueError(f"lanes {tuple(lanes)} of a queue split over ranks need comm")
+    first, w_ = (0, n) if lanes is None else lanes
+    one = torch.ones(n, dtype=F32, device=dev)
+    fr = _qpack(cpack(o), cpack(d), (one, one, one), torch.zeros_like(one),
+                torch.full_like(one, float(depth)), torch.arange(n, dtype=F32, device=dev), one)
+    pos = torch.arange(first, first + n, dtype=torch.int64, device=dev)
+    mtab = _queue_table(scene)
+    log = []
+    count, it, peak = w_, 0, w_
+    while count > 0:
+        b = int((pos < w_).sum())  # the rows are in position order
+        batch, slot = fr[:b], pos[:b]
+        key = slot[:0]
+        if b:
+            contrib, children, valid = _queue_batch(
+                scene, cfg, batch, torch.ones(b, dtype=torch.bool, device=dev), mtab, (slot, w_))
+            c3 = cstack(contrib)
+            at = (c3 != 0.0).any(-1).nonzero()[:, 0]
+            log.append((batch[at, _QPIX].to(torch.int64), batch[at, _QCODE].to(torch.int64),
+                        c3[at]))
+            keep = valid.nonzero()[:, 0]  # first children, then second, by slot
+            key = torch.cat([slot, slot + w_])[keep]
+        rem = max(count - w_, 0)
+        if comm is None:
+            born = key.shape[0]
+            new_pos = rem + torch.arange(born, device=dev)
+        else:
+            ind = torch.zeros(2 * w_, dtype=torch.uint8, device=dev)
+            ind[key] = 1
+            upto = torch.cumsum(comm.sum(ind, "queue"), 0, dtype=torch.int64)
+            born = int(upto[-1])
+            new_pos = rem + upto[key] - 1
+        fr = torch.cat([fr[b:], children[keep]]) if b else fr
+        pos = torch.cat([pos[b:] - w_, new_pos])
+        count = rem + born
+        peak = max(peak, count)
+        it += 1
+    img = _sum_in_branch_order(n, log, depth) if log else torch.zeros((n, 3), dtype=F32,
+                                                                         device=dev)
+    return img, it, peak
 
 
 # --------------------------------------------------------------------------
