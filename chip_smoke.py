@@ -83,7 +83,19 @@ drives the port's two halves of the main path through its entry points:
   more than 1e-3), with frame times, peak memory, launches, reorders and
   the bytes and ms of each exchange, queue iterations; the city frame
   without the reorder and roomglass with every light summed on 1 rank,
-  for scale.
+  for scale;
+* the JAX package's render options (``options_phase``, [29]), each
+  beside the run without it: the wavefront compaction on the 1080p
+  monu-like frame (compact_chunks 1, 4 and 8, with the live rays a
+  bounce), the reordered loop's live-prefix chunks on the city_xl_like
+  1080p frame (reorder_compact_chunks 1 and 4), the whitted batch sort on
+  stand-in roomglass 512^2 at depth 3 (queue iterations, K1/K2/K3 per
+  launch on every call), the threefry sampler against the hash on the
+  1080p frame (the mean within 4 standard errors of the hash frames'),
+  and the 1080p fused step with importance = 8 on its long-span bins
+  against uniform nodes (K4 at the probes' shape beside index_select):
+  each held to the plain versions, timed, counted, with the device's busy
+  share under torch.profiler.
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -1795,6 +1807,341 @@ def live_dist_phases(dev, key, smi, reset_counts, counts):
     return paths
 
 
+def busy_share(fn):
+    """fn() once to warm up, then once under torch.profiler -> (the kernels'
+    summed device ms, the profiled run's wall ms, their ratio: the device's
+    busy share; the profiler's own host work makes it a lower bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    check(dev_ms > 0, "the profiler saw no device time")
+    return dev_ms, wall, dev_ms / wall
+
+
+@contextlib.contextmanager
+def chunk_log(lives):
+    """Record the live lanes of each bounce a chunked loop traces
+    (``integrator._trace_chunks``' live_end) into `lives`."""
+    from voxtracer_torch.render import integrator
+
+    kept = integrator._trace_chunks
+
+    def rec(*args):
+        lives.append(args[4])
+        return kept(*args)
+
+    integrator._trace_chunks = rec
+    try:
+        yield lives
+    finally:
+        integrator._trace_chunks = kept
+
+
+OPTION_KERNELS = ("traverse_nearest", "traverse_occluded", "exit_march", "lookup_rows",
+                  "lookup_rows_bwd")
+
+
+def options_phase(dev, scene, cfg, params, plan, key, smi, reset_counts, counts, measure,
+                  results, city_size=(1920, 1080), room_size=512):
+    """Phase [29]: the JAX package's render options on the card, each beside
+    the run without it in one call, with main's helpers and the monu-like
+    1080p `scene` and its (2,10)@4 bin `plan`: the wavefront compaction
+    (compact_chunks 1 / 4 / 8), the reordered loop's live-prefix chunks on
+    city_xl_like 1080p (reorder_compact_chunks 1 / 4), the whitted batch
+    sort on stand-in roomglass 512^2 at depth 3, the threefry sampler
+    against the hash, and the fused gradient step with importance = 8 on
+    the long-span bins against uniform nodes.  Each option's frame or step
+    is held to the plain versions (images: 0.1% of pixels off by more than
+    1e-3; gradients: relative L2 1e-4), timed (``host_times``) with its
+    launches and the device's busy share (``busy_share``) -> {path: launch
+    counts}."""
+    import tempfile
+
+    import torch
+
+    from voxtracer_torch.core.rng import fold_in
+    from voxtracer_torch.diff import train
+    from voxtracer_torch.kernels import lookup, traverse
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.render.camera import primary_rays
+    from voxtracer_torch.scene import presets
+
+    paths = {}
+    n = cfg.width * cfg.height
+
+    def ms(t):
+        return f"median {t[0]:.1f} ms, min {t[1]:.1f} ms, spread {t[2]:.1f} ms"
+
+    def counted(what, fn, need):
+        """fn() with the counts set to 0 before and read after -> its
+        result; the counts go to paths[what], and each kernel in `need` must
+        have been launched."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = {kk: v for kk, v in counts().items() if kk in OPTION_KERNELS}
+        for kk in need:
+            check(c[kk] > 0, f"[29] {what}: {kk} not launched")
+        paths[f"[29] {what}"] = c
+        return out, c
+
+    def frame_of(scene_, cfg_):
+        return lambda: integrator.render_tiled(scene_, cfg_, key, 1, 1)
+
+    def timed_calls(what, fn):
+        """Every K1, K2 and K3 call of fn(), each held to its plain version
+        and timed per launch beside its bound, the plain version timed on
+        each kernel's first call -> {"K1" | "K2" | "K3": [(ms, bound ms,
+        plain ms or None), ...]}; each call's entry joins its kernel's JSON
+        "calls"."""
+        calls = []
+        with captured_traversals(calls):
+            fn()
+        torch.cuda.synchronize()
+        per = {}
+        for i, (mode, args) in enumerate(calls):
+            label = f"{what}, call {i}"
+            if mode == "exit":
+                tally = {}
+                out = traverse.exit_march(*args)
+                err = same_exit(out, traverse.exit_march_plain(*args, tally=tally), args[7], label)
+                bnd = exit_bound(args, out, tally)
+                kern = per_launch(lambda: traverse.exit_march(*args))
+                plain = functools.partial(traverse.exit_march_plain, *args)
+                name, kname, act = "K3", "exit_march", args[7]
+            else:
+                out = traverse.traverse(*args, mode=mode)
+                err = same_traversal(out, plain_traversal(args, mode), label)
+                bnd = traverse_bound(args, out, mode)[0]
+                kern = per_launch(lambda: traverse.traverse(*args, mode=mode))
+                plain = functools.partial(plain_traversal, args, mode)
+                name, kname, act = ("K1", "K2")[mode == "occluded"], f"traverse_{mode}", args[8]
+            plain_ms = None if name in per else per_launch(plain, windows=3)[0]
+            per.setdefault(name, []).append((kern[0], bnd[0], plain_ms))
+            next(r for r in results if r["name"] == kname).setdefault("calls", []).append(dict(
+                call=f"{label} ({name})", path=f"[29] {what}", rays=args[5].shape[0],
+                active=int(act.sum()), ms=kern[0], host_us=kern[1], bound_ms=bnd[0],
+                bound_by=bnd[1], share=bnd[0] / kern[0], plain_ms=plain_ms, max_abs_err=err))
+        return per
+
+    def calls_text(per):
+        return "; ".join(f"{k} {[round(t, 4) for t, _, _ in v]} ms, sum "
+                         f"{sum(t for t, _, _ in v):.4f} ms against a bound of "
+                         f"{sum(b for _, b, _ in v):.4f} ms (plain, first call {v[0][2]:.4f} ms)"
+                         for k, v in sorted(per.items()))
+
+    path_need = ("traverse_nearest", "traverse_occluded", "lookup_rows")
+
+    # ---- compaction: monu_like 1080p, 4 bounces, compact_chunks 1 / 4 / 8
+    runs = {}
+    for chunks in (1, 4, 8):
+        c_cfg = dataclasses.replace(cfg, compact_chunks=chunks)
+        check(integrator.path_loop(scene, c_cfg, n) == ("plain" if chunks == 1 else "compact"),
+              f"[29] compact_chunks {chunks}: the loop")
+        lives = []
+        with chunk_log(lives):
+            img, c = counted(f"monu_like 1080p, compact_chunks {chunks}", frame_of(scene, c_cfg),
+                             path_need)
+        mean = float(img.mean())
+        check(bool(torch.isfinite(img).all()) and 0.02 < mean < 10.0,
+              f"[29] compact_chunks {chunks}: mean {mean}")
+        runs[chunks] = dict(cfg=c_cfg, img=img, launches=c, lives=lives,
+                            times=host_times(frame_of(scene, c_cfg)),
+                            busy=busy_share(frame_of(scene, c_cfg)))
+        if chunks < 8:  # K1 and K2 on every call: the plain loop's and 4 chunks'
+            runs[chunks]["per"] = timed_calls(f"monu_like 1080p, compact_chunks {chunks}",
+                                              frame_of(scene, c_cfg))
+    for chunks in (4, 8):
+        with plain_versions():
+            plain = frame_of(scene, runs[chunks]["cfg"])()
+        runs[chunks]["off"] = pixels_off(runs[chunks]["img"], plain)
+        del plain
+    live = [f"{v / n:.1%}" for v in runs[4]["lives"]]
+    for chunks, r in runs.items():
+        log(f"[29] monu_like {cfg.width}x{cfg.height}, 4 bounces, compact_chunks {chunks}: frame "
+            f"{ms(r['times'])} (reps {[round(t, 1) for t in r['times'][3]]}); mean "
+            f"{float(r['img'].mean()):.4f}; launches {r['launches']}; device busy "
+            f"{r['busy'][2]:.1%} ({r['busy'][0]:.1f} of {r['busy'][1]:.1f} ms profiled)"
+            + (f"; per launch {calls_text(r['per'])}" if "per" in r else "")
+            + (f"; chunks traced a bounce {[-(-v // (n // chunks)) for v in r['lives']]}; "
+               f"kernels vs plain: {r['off'][0]:.4%} of pixels off by more than 1e-3 (max "
+               f"{r['off'][1]:.3g})" if chunks > 1 else "") + f" ({smi})")
+    log(f"[29] live rays at each bounce of the monu_like frame: {live}")
+    del runs
+
+    # ---- the reordered loop's live-prefix chunks: city_xl_like 1080p, reorder auto
+    cscene, ccfg = presets.city_xl_like_path(*city_size)
+    cscene = cscene.to(dev)
+    cn = ccfg.width * ccfg.height
+    check(integrator.path_loop(cscene, ccfg, cn) == "reorder", "[29] city_xl_like reorders")
+    runs = {}
+    for kc in (1, 4):
+        k_cfg = dataclasses.replace(ccfg, reorder_compact_chunks=kc)
+        lives = []
+        with chunk_log(lives):
+            img, c = counted(f"city_xl_like 1080p, reorder auto, reorder_compact_chunks {kc}",
+                             frame_of(cscene, k_cfg), path_need)
+        check(bool(torch.isfinite(img).all()), f"[29] reorder_compact_chunks {kc}: not finite")
+        runs[kc] = dict(img=img, launches=c, lives=lives, times=host_times(frame_of(cscene, k_cfg)),
+                        busy=busy_share(frame_of(cscene, k_cfg)))
+        if kc > 1:
+            with plain_versions(chunked=True):
+                plain = frame_of(cscene, k_cfg)()
+            runs[kc]["off"] = pixels_off(img, plain)
+            del plain
+    for kc, r in runs.items():
+        log(f"[29] city_xl_like {ccfg.width}x{ccfg.height}, 4 bounces, reorder auto, "
+            f"reorder_compact_chunks "
+            f"{kc}: frame {ms(r['times'])} (reps {[round(t, 1) for t in r['times'][3]]}); "
+            f"mean {float(r['img'].mean()):.4f}; launches {r['launches']}; device busy "
+            f"{r['busy'][2]:.1%} ({r['busy'][0]:.1f} of {r['busy'][1]:.1f} ms profiled)"
+            + (f"; live lanes a bounce {[f'{v / cn:.1%}' for v in r['lives']]}; kernels vs "
+               f"plain: {r['off'][0]:.4%} of pixels off by more than 1e-3 (max "
+               f"{r['off'][1]:.3g})" if kc > 1 else "") + f" ({smi})")
+    del runs, cscene
+
+    # ---- the whitted batch sort: stand-in roomglass 512^2, depth 3
+    tmp = tempfile.TemporaryDirectory()
+    kept_dir = presets.ASSET_DIR
+    try:
+        write_standin_assets(tmp.name, 0)
+        presets.ASSET_DIR = tmp.name
+        rscene, rcfg = presets.room_whitted(room_size, room_size, glass=True)
+    finally:
+        presets.ASSET_DIR = kept_dir
+        tmp.cleanup()
+    rscene = rscene.to(dev)
+    rn = rcfg.width * rcfg.height
+    ro, rd = primary_rays(rscene.camera, rcfg.width, rcfg.height,
+                          *integrator._pixel_grid(rcfg, dev))
+    ro = ro.contiguous()
+    runs = {}
+    for on in (False, True):
+        s_cfg = dataclasses.replace(rcfg, whitted_sort_batch=on)
+        (img, iters, peak), c = counted(
+            f"roomglass {room_size}^2 whitted, depth 3, whitted_sort_batch {on}",
+            lambda: integrator.whitted_queue(rscene, s_cfg, ro, rd, s_cfg.max_bounces),
+            path_need + ("exit_march",))
+        per = timed_calls(f"roomglass {room_size}^2, whitted_sort_batch {on}",
+                          lambda: integrator.whitted_queue(rscene, s_cfg, ro, rd,
+                                                           s_cfg.max_bounces))
+        runs[on] = dict(img=img, iters=iters, peak=peak, launches=c, per=per,
+                        times=host_times(lambda: integrator.whitted_queue(
+                            rscene, s_cfg, ro, rd, s_cfg.max_bounces)),
+                        busy=busy_share(lambda: integrator.whitted_queue(
+                            rscene, s_cfg, ro, rd, s_cfg.max_bounces)))
+        with plain_versions():
+            plain = integrator.whitted_queue(rscene, s_cfg, ro, rd, s_cfg.max_bounces)[0]
+        runs[on]["off"] = pixels_off(img, plain)
+    sort_diff = float((runs[True]["img"] - runs[False]["img"]).abs().max())
+    for on, r in runs.items():
+        log(f"[29] roomglass {rcfg.width}x{rcfg.height} whitted, depth 3 (stand-ins), "
+            f"whitted_sort_batch {on}: "
+            f"frame {ms(r['times'])} (reps {[round(t, 1) for t in r['times'][3]]}); "
+            f"{r['iters']} queue iterations, peak population {r['peak']} "
+            f"({r['peak'] / rn:.2f} N); launches {r['launches']}; per launch "
+            + calls_text(r["per"]) + f"; device busy {r['busy'][2]:.1%} ({r['busy'][0]:.1f} of {r['busy'][1]:.1f} ms "
+            f"profiled); kernels vs plain: {r['off'][0]:.4%} of pixels off by more than 1e-3 "
+            f"(max {r['off'][1]:.3g}) ({smi})")
+    log(f"[29] roomglass: sorted vs unsorted batches, largest pixel difference {sort_diff:.3g} "
+        f"(the sums' order)")
+    del runs, rscene
+
+    # ---- the threefry sampler against the hash: monu_like 1080p path
+    t_cfg = dataclasses.replace(cfg, rng="threefry")
+    timg, tc = counted("monu_like 1080p, rng threefry", frame_of(scene, t_cfg), path_need)
+    h0 = frame_of(scene, cfg)()
+    h1 = integrator.render_tiled(scene, cfg, fold_in(key, 1), 1, 1)
+    m0, m1, mt = float(h0.mean()), float(h1.mean()), float(timg.mean())
+    # the standard error of a frame's mean from the spread of two hash keys'
+    # frames, a pixel (its channels' mean) a sample; the threefry mean less
+    # the two hash frames' mean has sqrt(1.5) of it
+    se = float((h0 - h1).mean(-1).std()) / math.sqrt(2 * n)
+    check(abs(mt - 0.5 * (m0 + m1)) <= 4.0 * math.sqrt(1.5) * se,
+          f"[29] threefry mean {mt} against hash means {m0}, {m1} (standard error {se})")
+    t_times, h_times = host_times(frame_of(scene, t_cfg)), host_times(frame_of(scene, cfg))
+    t_busy, h_busy = busy_share(frame_of(scene, t_cfg)), busy_share(frame_of(scene, cfg))
+    with plain_versions():
+        plain = frame_of(scene, t_cfg)()
+    t_off = pixels_off(timg, plain)
+    del plain, h0, h1
+    log(f"[29] monu_like {cfg.width}x{cfg.height}, 4 bounces, rng threefry: frame "
+        f"{ms(t_times)} (reps "
+        f"{[round(t, 1) for t in t_times[3]]}), device busy {t_busy[2]:.1%} ({t_busy[0]:.1f} of "
+        f"{t_busy[1]:.1f} ms profiled); rng hash: frame {ms(h_times)} (reps "
+        f"{[round(t, 1) for t in h_times[3]]}), device busy {h_busy[2]:.1%} ({h_busy[0]:.1f} of "
+        f"{h_busy[1]:.1f} ms profiled); means threefry {mt:.5f}, hash keys 0 / 1 {m0:.5f} / "
+        f"{m1:.5f} (standard error of a frame mean {se:.2g}); launches {tc}; kernels vs plain: "
+        f"{t_off[0]:.4%} of pixels off by more than 1e-3 (max {t_off[1]:.3g}) ({smi})")
+
+    # ---- importance = 8 on the long-span bins of the fused step
+    iplan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3), device=dev),
+                               bin_steps=(2, 10), edges=(4.0,), tiles=2, span_steps=1,
+                               importance=8)
+    steps = {}
+    for what, p in (("uniform", plan), ("importance 8", iplan)):
+        (loss, grads), c = counted(f"1080p gradient, (2,10)@4 bins, {what}",
+                                   lambda: train.binned_grads(params, scene, p),
+                                   ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"))
+        steps[what] = dict(loss=float(loss), grads=grads, launches=c,
+                           times=host_times(lambda: train.fused_step(params, scene, cfg, key, p)),
+                           busy=busy_share(lambda: train.binned_grads(params, scene, p)))
+    with plain_versions():
+        ploss, pgrads = train.binned_grads(params, scene, iplan)
+    g = steps["importance 8"]["grads"]
+    rel = {f: rel_l2(getattr(g, f), getattr(pgrads, f)) for f in ("density_logits",
+                                                                  "albedo_table")}
+    for f, r in rel.items():
+        check(r <= 1e-4, f"[29] importance gradient {f}: kernels vs plain relative L2 {r}")
+    gu = steps["uniform"]["grads"].density_logits.flatten()
+    cos = float(torch.dot(gu, g.density_logits.flatten())
+                / (gu.norm() * g.density_logits.norm()))
+    for what, s in steps.items():
+        log(f"[29] fused step {cfg.width}x{cfg.height}, (2,10)@4 bins, {what}: "
+            f"{ms(s['times'])} (reps "
+            f"{[round(t, 1) for t in s['times'][3]]}); gradient loss {s['loss']:.6f}, launches "
+            f"{s['launches']}; gradient device busy {s['busy'][2]:.1%} ({s['busy'][0]:.1f} of "
+            f"{s['busy'][1]:.1f} ms profiled) ({smi})")
+    log(f"[29] importance gradient kernels vs plain: relative L2 density "
+        f"{rel['density_logits']:.3g}, albedo {rel['albedo_table']:.3g}; density gradient "
+        f"cosine with the uniform nodes' {cos:.4f}")
+    # K4 at the probes' shape: the brick means [2048, 1] x P x N of each
+    # long-span bin, beside the plain version and index_select
+    calls = {}
+    with captured_lookups(calls, every_n=True):
+        train.binned_grads(params, scene, iplan)
+    torch.cuda.synchronize()
+    probe_n = {8 * b.o.shape[0] for b in iplan.bins if b.clamp}
+    k_b = scene.volumes.n * scene.volumes.occ.shape[2]
+    entry = next(r for r in results if r["name"] == "lookup_rows")
+    for key_ in sorted(kk for kk in calls if kk[0] == "fwd" and kk[1] in probe_n
+                       and kk[2:] == (k_b, 1)):
+        tab, idx = calls[key_]
+        got = lookup.lookup_rows(tab, idx)
+        check(torch.equal(got, lookup.lookup_rows_plain(tab, idx)),
+              f"[29] K4 rows differ at the probe shape {list(tab.shape)} x {idx.shape[0]}")
+        cidx = idx.clamp(0, tab.shape[0] - 1)
+        *_, shape_entry = measure(
+            f"[29] K4 importance probes {list(tab.shape)} x {idx.shape[0]}",
+            lambda: lookup.lookup_rows(tab, idx), None,
+            lambda: lookup.lookup_rows_plain(tab, idx), lambda: torch.index_select(tab, 0, cidx),
+            "index_select", bound(nbytes(tab, idx, got), 3 * got.numel()), {})
+        entry["shapes"].append(shape_entry)
+    check(any(kk[1] in probe_n for kk in calls if kk[0] == "fwd"),
+          "[29] no K4 call at the importance probes' shape")
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2730,13 +3077,19 @@ def main(argv=None) -> int:
     # the sharded frames of one global wavefront
     live_paths = live_dist_phases(dev, key, smi, reset_counts, counts)
 
+    # ---- 29. the JAX package's render options, each beside the run without it
+    t0 = time.perf_counter()
+    option_paths = options_phase(dev, scene, cfg, params, plan, key, smi, reset_counts, counts,
+                                 measure, results)
+    log(f"[29] {time.perf_counter() - t0:.1f} s")
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
              "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths,
-             **asset_paths, **live_paths}
+             **asset_paths, **live_paths, **option_paths}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:

@@ -24,6 +24,12 @@ port), each spawn with a timeout of its own.
   frame (143 pixels padded to 144) has the right shape and is finite; a
   window of lanes of a reordering wavefront without the other ranks is
   refused.
+* The render options that act on the global wavefront, on 2 and 4 ranks
+  bit for bit the 1-rank frame: the compacted path frame
+  (``compact_chunks = 3`` on monu_like 16x9, 144 rays: chunks of 48
+  lanes, which straddle the ranks' windows of 72 and 36), the reordered
+  frame in live-prefix chunks (``reorder_compact_chunks = 3``) and the
+  random-light whitted frame with ``whitted_sort_batch``.
 * A (2, 2) ``train_demo`` on 4 ranks (glassbox 16x16 in path mode, 16
   march steps): the loss within 1e-5 relative and each gradient within
   relative L2 1e-4 of the 1-rank step (PERF.md's gradient gate), and the
@@ -95,7 +101,13 @@ def _scene(name, w, h, bounces, mode=None, **cfg_kw):
 FRAMES = {"whitted": ("glassbox", 16, 8, 2, None, {}), "path": ("monu_like", 16, 8, 2, None, {}),
           "uneven": ("glassbox", 13, 11, 2, "path", {}),
           "reorder": ("monu_like", 16, 8, 2, None, dict(bounce_reorder="always")),
-          "random_whitted": ("glassbox", 16, 8, 2, None, dict(random_lights=True))}
+          "random_whitted": ("glassbox", 16, 8, 2, None, dict(random_lights=True)),
+          "compact": ("monu_like", 16, 9, 2, None, dict(compact_chunks=3, compact_min=1)),
+          "reorder_chunks": ("monu_like", 16, 9, 2, None,
+                             dict(bounce_reorder="always", bounce_reorder_period=1,
+                                  reorder_compact_chunks=3)),
+          "sorted_whitted": ("glassbox", 16, 8, 2, None,
+                             dict(random_lights=True, whitted_sort_batch=True))}
 
 
 def _render_frames():
@@ -200,6 +212,35 @@ def test_ranks_share_the_global_wavefront_bit_for_bit(frames, what, ranks):
         np.testing.assert_array_equal(rank_out[what], one)
         assert ([k for k, _ in rank_out[f"{what} stats"]["exchanges"]]
                 == [k for k, _ in frames[1][f"{what} stats"]["exchanges"]])
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("what", ["compact", "reorder_chunks", "sorted_whitted"])
+def test_ranks_render_the_option_frames_bit_for_bit(frames, what, ranks):
+    """compact_chunks, reorder_compact_chunks and whitted_sort_batch act on
+    the one global wavefront: every rank of 2 and of 4 gives the 1-rank
+    image bit for bit, after the same exchanges.  The options ran: the
+    compacted and chunked frames differ from the plain and the reordered
+    one (other chunk keys), and the sorted whitted frame is the unsorted
+    one (the exact queue's sort only reorders dispatch)."""
+    one = frames[1][what]
+    kinds = {k for k, _ in frames[1][f"{what} stats"]["exchanges"]}
+    assert kinds == {"compact": {"compact", "unpermute"},
+                     "reorder_chunks": {"alive", "reorder", "live", "unpermute"},
+                     "sorted_whitted": {"queue"}}[what]
+    for rank_out in frames[ranks]:
+        np.testing.assert_array_equal(rank_out[what], one)
+        assert ([k for k, _ in rank_out[f"{what} stats"]["exchanges"]]
+                == [k for k, _ in frames[1][f"{what} stats"]["exchanges"]])
+    if what == "sorted_whitted":
+        np.testing.assert_array_equal(one, frames[1]["random_whitted"])
+        return
+    assert np.isfinite(one).all() and 0.02 < one.mean() < 10.0
+    scene, cfg = _scene("monu_like", 16, 9, 2)
+    mesh = make_mesh(device="cpu")
+    for other in (cfg, dataclasses.replace(cfg, bounce_reorder="always", bounce_reorder_period=1)):
+        plain = render_sharded(scene, other, make_key(0), 1, mesh).numpy()
+        assert (np.abs(plain - one).max(-1) > 1e-3).mean() > 0.05
 
 
 def test_four_ranks_render_the_one_rank_image_bit_for_bit(frames):
@@ -326,6 +367,16 @@ def test_a_window_of_lanes_without_the_other_ranks_cannot_reorder():
     px, py = integrator._pixel_grid(cfg, scene.device)
     o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px, py)
     with pytest.raises(ValueError, match="reorder"):
+        integrator.trace_path(scene, cfg, o[:64].contiguous(), d[:64], make_key(0),
+                              lanes=(0, 128))
+
+
+def test_a_window_of_lanes_without_the_other_ranks_cannot_compact():
+    """Likewise the compaction, which partitions the whole wavefront."""
+    scene, cfg = _scene("monu_like", 16, 8, 2, compact_chunks=4, compact_min=1)
+    px, py = integrator._pixel_grid(cfg, scene.device)
+    o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px, py)
+    with pytest.raises(ValueError, match="compaction"):
         integrator.trace_path(scene, cfg, o[:64].contiguous(), d[:64], make_key(0),
                               lanes=(0, 128))
 

@@ -928,3 +928,102 @@ def test_random_light_whitted_frame_kernels_match_plain(cuda):
     assert len(stats["exchanges"]) == stats["queue_iterations"][0] > 1
     assert _pixels_off(got, want) == 0
     assert _pixels_off(got, summed) > 0
+
+
+def _held_frame(run, share=1e-3):
+    """run() through the kernels and through the plain versions: finite,
+    and at most `share` of the pixels off by more than 1e-3 (chip_smoke's
+    image gate) -> the kernels' image."""
+    got = run()
+    with plain_versions():
+        want = run()
+    assert bool(torch.isfinite(got).all())
+    assert _pixels_off(got, want) <= share * got[..., 0].numel()
+    return got
+
+
+@pytest.mark.parametrize("chunks", [4, 8])
+def test_compacted_path_frame_kernels_match_plain(cuda, chunks):
+    """compact_chunks on the monu-like 128x64 path frame, 4 bounces
+    (compact_min 1): each bounce's chunks through K1, K2 and K4, held to
+    the plain versions; more K1 launches than bounces."""
+    scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=4)
+    cfg = dataclasses.replace(cfg, compact_chunks=chunks, compact_min=1)
+    scene = scene.to(cuda)
+    before = traverse.launches["traverse_nearest"]
+    got = _held_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1))
+    assert traverse.launches["traverse_nearest"] - before > cfg.max_bounces + 1
+    assert 0.02 < float(got.mean()) < 10.0
+
+
+def test_compacted_media_frame_kernels_match_plain(cuda):
+    """compact_chunks = 4 on the media scene at 128^2: K3 marches inside
+    the chunks."""
+    scene, cfg = media_path(128, 128, bounces=4)
+    cfg = dataclasses.replace(cfg, compact_chunks=4, compact_min=1)
+    scene = scene.to(cuda)
+    before = traverse.launches["exit_march"]
+    _held_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1))
+    assert traverse.launches["exit_march"] > before
+
+
+def test_reorder_compact_chunks_kernels_match_plain(cuda):
+    """reorder_compact_chunks = 4 on the reordered 128x64 frame (reorder
+    always, period 1): through the kernels and the plain versions, 1% of
+    pixels (chip_smoke's gate with the reorder forced on)."""
+    scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=3)
+    cfg = dataclasses.replace(cfg, bounce_reorder="always", bounce_reorder_period=1,
+                              reorder_compact_chunks=4)
+    scene = scene.to(cuda)
+    _held_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1), 1e-2)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_whitted_sort_batch_kernels_match_plain(cuda, exact):
+    """whitted_sort_batch on glassbox 128^2, depth 5: the FIFO queue held
+    to the plain versions; the exact queue's image equals the unsorted
+    exact queue's to rounding of K1-K3 (none: they work per ray)."""
+    scene, cfg = glass_sphere_box(128, 128)
+    cfg = dataclasses.replace(cfg, whitted_sort_batch=True)
+    scene = scene.to(cuda)
+    px, py = integrator._pixel_grid(cfg, cuda)
+    o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px, py)
+    o = o.contiguous()
+    got = _held_frame(lambda: integrator.whitted_queue(scene, cfg, o, d, 5, exact=exact)[0])
+    if exact:
+        unsorted = integrator.whitted_queue(
+            scene, dataclasses.replace(cfg, whitted_sort_batch=False), o, d, 5, exact=True)[0]
+        assert torch.equal(got, unsorted)
+
+
+def test_threefry_path_frame_kernels_match_plain(cuda):
+    """rng = "threefry" on the monu-like 128x64 path frame."""
+    scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=4)
+    cfg = dataclasses.replace(cfg, rng="threefry")
+    scene = scene.to(cuda)
+    got = _held_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1))
+    assert 0.02 < float(got.mean()) < 10.0
+
+
+def test_importance_gradient_kernels_match_plain(cuda):
+    """importance = 8 on the clamped bins of the monu-like 256x128 binned
+    gradient: the probes through K4, the step through K1, K4 and K4-bwd,
+    within relative L2 1e-4 of the plain versions."""
+    scene, cfg = monu_like_path(256, 128, bounces=4)
+    scene = scene.to(cuda)
+    params = volumetric.params_from_scene(scene, occupied_logit=-4.0, empty_logit=-8.0)
+    plan = train.prepare_bins(scene, cfg, torch.zeros((cfg.height, cfg.width, 3), device=cuda),
+                              importance=8)
+    assert any(b.clamp for b in plan.bins)
+    before = lookup.launches["lookup_rows"]
+    _, got = train.binned_grads(params, scene, plan)
+    launched = lookup.launches["lookup_rows"] - before
+    with plain_versions():
+        _, want = train.binned_grads(params, scene, plan)
+    uniform = dataclasses.replace(plan, importance=0)
+    before = lookup.launches["lookup_rows"]
+    train.binned_grads(params, scene, uniform)
+    assert launched > lookup.launches["lookup_rows"] - before  # the probes' lookups
+    for f in ("density_logits", "albedo_table"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert float((g - w).norm() / w.norm()) <= 1e-4, f

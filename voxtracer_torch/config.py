@@ -16,6 +16,9 @@ class RenderConfig:
     # (static-camera temporal reuse, render/reproject.py)
     mode: str = "path"
     max_bounces: int = 14
+    # samples per pixel the presets carry (the renderers and the CLI take
+    # spp as an argument)
+    spp: int = 1
     # thin-lens depth of field in path mode (camera.h:68-101): the lens
     # sample draws hash salt 101; the camera's focal_distance and
     # defocus_jitter shape it
@@ -23,6 +26,9 @@ class RenderConfig:
     aa_strength: float = 1.0  # renderer.h:183 antiAliasingStrength
     activate_sky: bool = True
     sky_fallback: tuple = (0.392, 0.584, 0.829)  # renderer.cpp:2312
+    # shadow samples per area light in the all-lights NEE sum
+    # (renderer.h:205 numCheckShadowsAreaLight)
+    num_area_samples: int = 3
     # evaluate and sum every light at NEE instead of one random light
     # scaled by the light count: same expectation (renderer.cpp:738-764),
     # no variance
@@ -55,5 +61,24 @@ class RenderConfig:
     bounce_reorder: str = "auto"
     # re-sort before every k-th bounce from bounce 1 on (1 = every bounce)
     bounce_reorder_period: int = 2
-    # the fewest rays "auto" reorders
+    # path mode: between bounces, partition the surviving rays to a prefix
+    # (a stable partition) and trace chunks of n // compact_chunks rays,
+    # stopping after the last chunk that holds a live ray.  1 = off.
+    # Applied when the wavefront holds at least compact_min rays and
+    # compact_chunks divides it, and then in place of the bounce reorder.
+    compact_chunks: int = 1
+    # the fewest rays the compaction chunks and "auto" reorders
     compact_min: int = 65536
+    # the sampler of the path and light streams: "hash" (the counter hash
+    # of core/rng.py) or "threefry" (jax.random's streams): the same
+    # estimators with other sample values
+    rng: str = "hash"
+    # path mode, reordered loop: after each re-sort the live rays are a
+    # prefix, so trace chunks of n // k rays and stop after the last chunk
+    # that holds a live ray.  1 = off; a k that does not divide the
+    # wavefront leaves the loop unchunked.
+    reorder_compact_chunks: int = 1
+    # whitted: sort each queue batch by (live, morton code of the origin,
+    # direction octant) before it is traced.  Dispatch order only: each
+    # branch's maths is unchanged, and a pixel's sum changes by rounding.
+    whitted_sort_batch: bool = False

@@ -127,13 +127,13 @@ def hash_normal(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tenso
 # reproject pass draws from these directly, not through the hash.
 # --------------------------------------------------------------------------
 
-def threefry_bits(key: tuple, shape, device, lanes=None) -> torch.Tensor:
+def threefry_bits(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values: element i
     of the row-major shape is ``y0 ^ y1`` of threefry2x32(key, (hi, lo))
     over the 64-bit counter i = hi * 2**32 + lo; the lanes of a window
-    (``counters``) run along the first axis."""
-    idx = counters(shape, device, lanes, 0)
-    n = math.prod(shape) if lanes is None else math.prod(shape[1:]) * lanes[1]
+    (``counters``) run along `axis`."""
+    idx = counters(shape, device, lanes, axis)
+    n = math.prod(shape) if lanes is None else math.prod(shape) // shape[axis] * lanes[1]
     hi = idx >> 32 if n > M32 else 0
     y0, y1 = _threefry2x32(key[0], key[1], hi, idx & M32)
     return (y0 ^ y1).reshape(shape)
@@ -145,10 +145,10 @@ def _unit_floats(bits):
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
-def threefry_uniform(key: tuple, shape, device, lanes=None) -> torch.Tensor:
+def threefry_uniform(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``, bit for bit; `lanes`
-    as in ``threefry_bits``."""
-    return _unit_floats(threefry_bits(key, shape, device, lanes))
+    and `axis` as in ``threefry_bits``."""
+    return _unit_floats(threefry_bits(key, shape, device, lanes, axis))
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),
@@ -180,11 +180,12 @@ def erf_inv(x):
 _NORMAL_LO = -0.99999994039535522  # nextafter(-1, 0) in float32
 
 
-def threefry_normal(key: tuple, shape, device) -> torch.Tensor:
+def threefry_normal(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: sqrt(2) * erf_inv(u) of
     a uniform u in (-1, 1).  The uniform is bit-equal; erf_inv is XLA's
     polynomial, which XLA evaluates with fused multiply-adds, so the
-    normals agree to a few ulps (tests/test_torch_reproject.py)."""
-    u = _unit_floats(threefry_bits(key, shape, device)) * 2.0 + _NORMAL_LO
+    normals agree to a few ulps (tests/test_torch_reproject.py).  `lanes`
+    and `axis` as in ``threefry_bits``."""
+    u = _unit_floats(threefry_bits(key, shape, device, lanes, axis)) * 2.0 + _NORMAL_LO
     u = torch.clamp(u, min=_NORMAL_LO)
     return math.sqrt(2.0) * erf_inv(u)

@@ -52,14 +52,18 @@ class BinPlan:
     denom: float      # element count of one band: the MSE's denominator
     k: int            # pair compaction
     span_steps: int
+    importance: int = 0  # importance probes on the bins that clamp (the long spans)
 
 
 def prepare_bins(scene: Scene, cfg: RenderConfig, target, bin_steps=(2, 10),
-                 edges=(4.0,), tiles: int = 2, span_steps: int = 1, k=None) -> BinPlan:
+                 edges=(4.0,), tiles: int = 2, span_steps: int = 1, k=None,
+                 importance: int = 0) -> BinPlan:
     """The precompute of ``binned_grads`` for target [H, W, 3]: `tiles`
     row bands, each split into span bins by ``edges``; bin b marches
     bin_steps[b] core steps and skips the clamp when b == 0 (its spans are
-    a few cells).  k defaults to the exact pair compaction."""
+    a few cells).  k defaults to the exact pair compaction.  importance:
+    the importance probes of the bins b > 0, as scripts/bench_bwd_imp.py
+    applies them (0: uniform nodes)."""
     dev = scene.device
     w, h = cfg.width, cfg.height
     rows = -(-h // tiles)
@@ -81,7 +85,8 @@ def prepare_bins(scene: Scene, cfg: RenderConfig, target, bin_steps=(2, 10),
             bins.append(Bin(steps=bin_steps[bi], clamp=bi > 0, n_active=na, o=oc, d=dc,
                             bg=sample_sky(scene.sky, dc, cfg.activate_sky, cfg.sky_fallback),
                             target=t_flat[sel], spans=spans_for_rays(scene, oc, dc)))
-    return BinPlan(bins=bins, denom=float(rows * w * 3), k=k, span_steps=span_steps)
+    return BinPlan(bins=bins, denom=float(rows * w * 3), k=k, span_steps=span_steps,
+                   importance=importance)
 
 
 def binned_grads(params: DiffParams, scene: Scene, plan: BinPlan):
@@ -92,7 +97,8 @@ def binned_grads(params: DiffParams, scene: Scene, plan: BinPlan):
     for b in plan.bins:
         loss = mse_loss_active(leaves, scene, b.o, b.d, b.bg, b.target, plan.denom,
                                b.steps, k=plan.k, span_steps=plan.span_steps,
-                               clamp=b.clamp, n_active=b.n_active, spans=b.spans)
+                               clamp=b.clamp, n_active=b.n_active, spans=b.spans,
+                               importance=plan.importance if b.clamp else 0)
         loss.backward()
         total = total + loss.detach()
     return total, DiffParams(density_logits=leaves.density_logits.grad,

@@ -26,15 +26,18 @@ gradients agree with the JAX package's to about 0.4%, not bit for bit.
 
 The union-span march's transmittance clamp is one nearest traversal
 (``kernels.traverse.traverse``: the nearest-hit kernel on the card, the
-plain dense walk on the CPU).
+plain dense walk on the CPU).  With ``importance=P`` the union core's
+nodes are placed by the inverse CDF of a P-segment brick-occupancy
+profile; the profile's probes read the brick means through the row-lookup
+kernel without autograd (``kernels.lookup.lookup_rows``).
 
 The host helpers (``active_ray_permutation``, ``span_cells_bins``,
 ``max_aabb_crossings``) stay numpy, written as the JAX package writes
 them, so their permutations are bit-equal to its.
 
-Not ported: the importance-placed march nodes (``importance=P``), the
-profiling ablation flags and the rematerialisation switch, all default-off
-in the JAX package.  The JAX functions' unused arguments are dropped:
+Not ported: the profiling ablation flags and the rematerialisation
+switch, both default-off in the JAX package.  The JAX functions' unused
+arguments are dropped:
 ``key`` of render_diff and mse_loss, ``cfg`` of render_diff_active and
 mse_loss_active.
 """
@@ -48,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from voxtracer_torch.core.types import MAT_NONE, Scene, _Record
+from voxtracer_torch.kernels import lookup
 from voxtracer_torch.kernels.lookup import LookupRows
 from voxtracer_torch.kernels.traverse import traverse
 from voxtracer_torch.render.camera import primary_rays, primary_rays_np
@@ -401,7 +405,7 @@ def _seg_composite(carry, od, ar, ag, ab):
 
 def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
                  density_scale: float, k: int, span_steps: int, clamp: bool,
-                 spans=None):
+                 spans=None, importance: int = 0):
     """The relaxed march over rays o, d [N, 3] -> (color [N, 3], t_total
     [N], valid [N]).  See render_diff for the estimator."""
     n, dev = o.shape[0], o.device
@@ -562,10 +566,51 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
     u0 = torch.where(has_core, u0, BIG)  # no-core rays: leads cover all
     u1 = torch.where(has_core, u1, BIG)
     dt_u = torch.where(has_core, (u1 - u0) / n_steps, 0.0)
+    if importance > 0:
+        # importance-placed core nodes: `importance` probes split [u0, u1]
+        # into equal segments; a segment is occupied where its midpoint lies
+        # in a pair's grid on a brick whose mean sigma is above 1e-6.  Each
+        # segment weighs its occupancy + 0.1 and the nodes sit at the
+        # inverse of the weights' CDF, each node's width dt/dc * total /
+        # n_steps: the same integral in the changed variable.  No gradient
+        # flows through the nodes; the probes read the brick means through
+        # the row-lookup kernel.
+        imp = importance
+        with torch.no_grad():
+            bsig1 = bsig[:, None].contiguous()
+            segl = (u1 - u0) / imp                                   # [N]
+            pj = (torch.arange(imp, dtype=F32, device=dev) + 0.5)[:, None]
+            t_probe = u0[None] + pj * segl[None]                     # [P, N]
+            occ_p = torch.zeros((imp, n), dtype=torch.bool, device=dev)
+            for j in range(v_eff):
+                ms_i = (gs_i[j] + 7) // 8
+                lx, ly, lz = cell_coords(j, t_probe)
+                ibx, iby, ibz = (_clip_cell(c * 0.125, ms_i - 1) for c in (lx, ly, lz))
+                fb = (vol_ids[j] * m3 + (ibx * msp + iby) * msp + ibz).expand(imp, n)
+                sb = lookup.lookup_rows(bsig1, fb.reshape(-1).to(I32).contiguous())
+                occ_p = occ_p | (in_grid(lx, ly, lz, gs_f[j]) & (sb.reshape(imp, n) > 1e-6))
+            w_p = occ_p.to(F32) + 0.1                                # [P, N]
+            cdf = torch.cumsum(w_p, dim=0)
+            total = cdf[-1]
+            cstep = ((torch.arange(n_steps, dtype=F32, device=dev) + 0.5)[:, None]
+                     * (total[None] / n_steps))                      # [S, N]
+            t_tab = u0[None].expand(n_steps, n)
+            dt_tab = torch.zeros((n_steps, n), dtype=F32, device=dev)
+            prev = torch.zeros(n, dtype=F32, device=dev)
+            for j in range(imp):
+                in_seg = (cstep >= prev[None]) & (cstep < cdf[j][None])
+                frac = (cstep - prev[None]) / w_p[j][None]
+                t_tab = torch.where(in_seg, u0[None] + (j + frac) * segl[None], t_tab)
+                dt_tab = torch.where(in_seg,
+                                     (total[None] / n_steps) * segl[None] / w_p[j][None], dt_tab)
+                prev = cdf[j]
 
     def core_chunk(carry, k0, ksteps):
-        ki = (torch.arange(ksteps, dtype=F32, device=dev) + (k0 + 0.5))[:, None]
-        t_mid = u0 + ki * dt_u  # [C, N]
+        if importance > 0:
+            t_mid, dtc = t_tab[k0:k0 + ksteps], dt_tab[k0:k0 + ksteps]
+        else:
+            ki = (torch.arange(ksteps, dtype=F32, device=dev) + (k0 + 0.5))[:, None]
+            t_mid, dtc = u0 + ki * dt_u, dt_u  # [C, N]
         flat = torch.zeros((ksteps, n), dtype=I32, device=dev)
         inside_any = torch.zeros((ksteps, n), dtype=torch.bool, device=dev)
         for j in range(v_eff):
@@ -580,7 +625,7 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
         alb = LookupRows.apply(alb_tab, cells[:, 1].to(I32))  # [C * N, 3]
         ar, ag, ab = (torch.where(inside_any, alb[:, c].reshape(ksteps, n), 0.0)
                       for c in range(3))
-        return _seg_composite(carry, s * dt_u, ar, ag, ab)
+        return _seg_composite(carry, s * dtc, ar, ag, ab)
 
     def brick_seg(carry, j, t_start, dtp):
         """Pair j's lead or tail segment at brick granularity."""
@@ -618,7 +663,7 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
 def render_diff(params: DiffParams, scene: Scene, cfg, n_steps: int = 192,
                 density_scale: float = 512.0, row0: int = 0, rows: int = 0,
                 k: int = 0, span_steps: int = 0, perm=None, inv_perm=None,
-                n_active: int = 0, clamp: bool = True):
+                n_active: int = 0, clamp: bool = True, importance: int = 0):
     """Primary-visibility differentiable render -> [H, W, 3], or
     [rows, W, 3] for the band of `rows` scanlines from row0.
 
@@ -629,8 +674,10 @@ def render_diff(params: DiffParams, scene: Scene, cfg, n_steps: int = 192,
     n_steps core over the union of the pairs' occupied-brick spans, with
     span_steps brick-level samples over each pair's empty lead and tail,
     and (clamp) stops the core at the hard first hit plus a transmittance
-    margin.  perm / inv_perm / n_active (active_ray_permutation) march
-    only the active prefix, padded to a multiple of 1024 rays."""
+    margin; importance = P > 0 places the core's nodes by P occupancy
+    probes a ray instead of uniformly.  perm / inv_perm / n_active
+    (active_ray_permutation) march only the active prefix, padded to a
+    multiple of 1024 rays."""
     dev = scene.device
     h = rows or cfg.height
     x = torch.arange(cfg.width, dtype=F32, device=dev)
@@ -647,7 +694,7 @@ def render_diff(params: DiffParams, scene: Scene, cfg, n_steps: int = 192,
         d_full = d
         o, d = o[perm[:na]], d[perm[:na]]
     color, t_total, valid = _march_color(params, scene, o, d, n_steps, density_scale,
-                                         k, span_steps, clamp)
+                                         k, span_steps, clamp, importance=importance)
     bg = sample_sky(scene.sky, d, cfg.activate_sky, cfg.sky_fallback)
     img = torch.where(valid[:, None], color + t_total[:, None] * bg, bg)
     if compact:
@@ -659,24 +706,26 @@ def render_diff(params: DiffParams, scene: Scene, cfg, n_steps: int = 192,
 
 def render_diff_active(params: DiffParams, scene: Scene, o, d, bg, n_steps: int,
                        density_scale: float = 512.0, k: int = 0, span_steps: int = 0,
-                       clamp: bool = True, spans=None):
+                       clamp: bool = True, spans=None, importance: int = 0):
     """Radiance [N, 3] of pre-compacted rays o, d [N, 3] with their
     pre-sampled sky bg [N, 3]: the training-loop form of render_diff, with
     everything camera-derived hoisted out of the gradient."""
     color, t_total, valid = _march_color(params, scene, o, d, n_steps, density_scale,
-                                         k, span_steps, clamp, spans=spans)
+                                         k, span_steps, clamp, spans=spans,
+                                         importance=importance)
     return torch.where(valid[:, None], color + t_total[:, None] * bg, bg)
 
 
 def mse_loss_active(params: DiffParams, scene: Scene, o, d, bg, target_active,
                     denom: float, n_steps: int, k: int = 0, span_steps: int = 0,
-                    clamp: bool = True, n_active: int = 0, spans=None):
+                    clamp: bool = True, n_active: int = 0, spans=None, importance: int = 0):
     """Sum of squared errors over the active rays / denom: with denom the
     full band's element count, exactly the gradient of the band's image
     MSE.  n_active > 0 masks the pad rows past n_active, which may be
     rays of another bin."""
     img = render_diff_active(params, scene, o, d, bg, n_steps, k=k,
-                             span_steps=span_steps, clamp=clamp, spans=spans)
+                             span_steps=span_steps, clamp=clamp, spans=spans,
+                             importance=importance)
     err = ((img - target_active) ** 2).sum(dim=-1)
     if n_active and n_active < o.shape[0]:
         err = torch.where(torch.arange(o.shape[0], device=o.device) < n_active, err, 0.0)

@@ -18,20 +18,27 @@ counters global: a rank draws its own lanes of each global stream
 bit whenever H*W is a multiple of the rank count; otherwise a path frame
 draws over the n_pad lanes, as the JAX package's does.
 
-Two frames need more than the ranks' own lanes, since the JAX package
+Some frames need more than the ranks' own lanes, since the JAX package
 runs them on the one global wavefront; ``RankComm`` carries their
 exchanges.  The path integrator's bounce reorder sorts the whole
 wavefront: each reorder gathers every rank's packed state, every rank
 sorts it as one process would and keeps its window, and the radiance
 goes back to its pixel through the gathered first-lane ids
-(``integrator._trace_path_reordered``).  The whitted branch queue draws
+(``integrator._trace_path_reordered``).  The wavefront compaction
+(``compact_chunks``) gathers the packed state each bounce and partitions
+it the same way (``integrator._trace_path_compacted``); its chunks, and
+those of ``reorder_compact_chunks`` (the last live lane from one gather
+of each rank's), are global lane ranges, of which each rank traces its
+share at the chunk's lanes.  The whitted branch queue draws
 random light choices and area-light samples at a branch's slot in the
 global queue: every row keeps its global queue position, and one sum of
 an indicator of the children's keys a queue iteration places each child
 (``integrator._exact_queue``).  A whitted frame whose draws do not depend
 on the slot (every light summed, no area light) runs each rank's rays as
 a queue of their own, with no exchange.  Either way the queue runs in its
-exact order, whose pixels do not depend on how the rays are split.
+exact order, whose pixels do not depend on how the rays are split, nor
+on ``whitted_sort_batch``, which there reorders only the dispatch of a
+rank's batch.
 """
 
 from __future__ import annotations
@@ -193,9 +200,10 @@ def render_sharded(scene, cfg, key, spp: int, mesh: Mesh, stats: dict | None = N
     """Data-parallel render: pixels sharded over the mesh's first axis ->
     the full [H, W, 3] radiance image, on every rank, on the scene's
     device (the JAX package's ``render_sharded``).  A path frame that
-    reorders its bounces and a whitted frame whose light samples depend on
-    the queue slot exchange what the one global wavefront needs
-    (``RankComm``); every other frame exchanges only the image.  With a
+    compacts or reorders its bounces and a whitted frame whose light
+    samples depend on the queue slot exchange what the one global
+    wavefront needs (``RankComm``); every other frame exchanges only the
+    image.  With a
     `stats` dict: "exchanges", the (what, bytes, ms) of each exchange of
     the frame's wavefronts, and in whitted mode "queue_iterations", a
     sample's queue iterations."""

@@ -8,8 +8,9 @@ The asset presets read MagicaVoxel files from ``ASSET_DIR`` (the
 directory, where the files go once they are in the repository):
 ``teapot_primary``, ``room_whitted`` (``glass=True``:
 roomGlass.vox), ``monu_path``, ``city_path`` and ``city_xl_path``, with
-the JAX package's cameras, lights and configs.  The port's RenderConfig
-has no ``spp``: the renderers take it as an argument.
+the JAX package's cameras, lights and configs.  The path presets take
+``spp=`` into their RenderConfig, as the JAX package's do; the renderers
+take spp as an argument.
 
 The asset-free presets stand in for scenes whose files are not in the
 repository:
@@ -102,7 +103,7 @@ def room_whitted(width=512, height=512, gridsize=128, glass=False):
     return _assemble(vols, mats, lights, cam), cfg
 
 
-def monu_path(width=1920, height=1080, gridsize=64, which=(1, 2, 3), bounces=4):
+def monu_path(width=1920, height=1080, gridsize=64, which=(1, 2, 3), bounces=4, spp=1):
     """Config 4 (presets.py:90-110): monu1-3.vox side by side on a floor
     slab, path traced under the procedural sky."""
     updates: dict = {}
@@ -115,12 +116,12 @@ def monu_path(width=1920, height=1080, gridsize=64, which=(1, 2, 3), bounces=4):
     lights = make_lights(point=((0.0, 3.0, -2.0, 6.0, 6.0, 6.0),))
     cam = make_camera(pos=(0.1, 1.1, -2.6), target=(0.2, 0.5, 0.5), aspect=width / height)
     cfg = RenderConfig(width=width, height=height, mode="path", max_bounces=bounces,
-                       activate_sky=True)
+                       spp=spp, activate_sky=True)
     return _assemble(build_volumes(specs), mats, lights, cam), cfg
 
 
 def city_path(width=1920, height=1080, gridsize=64, nx=4, nz=4, bounces=4,
-              vary_scale=False, page=24):
+              spp=1, vary_scale=False, page=24):
     """Config 5 (presets.py:113-143): an nx x nz grid of the
     SmallBuilding01/02 and TallBuilding01 models, each at a random quarter
     turn (and with vary_scale a scale in [0.7, 1.3)) drawn from
@@ -148,16 +149,16 @@ def city_path(width=1920, height=1080, gridsize=64, nx=4, nz=4, bounces=4,
     lights = make_lights(point=((0.0, 5.0, -4.0, 20.0, 20.0, 18.0),))
     cam = make_camera(pos=(-1.5, 1.6, -3.2), target=(0.0, 0.3, 0.0), aspect=width / height)
     cfg = RenderConfig(width=width, height=height, mode="path", max_bounces=bounces,
-                       activate_sky=True)
+                       spp=spp, activate_sky=True)
     return _assemble(vols, mats, lights, cam), cfg
 
 
-def city_xl_path(width=1920, height=1080, gridsize=64, bounces=4):
+def city_xl_path(width=1920, height=1080, gridsize=64, bounces=4, spp=1):
     """Config 5 at its blueprint scale (presets.py:146-161): city_path on
     an 11 x 10 grid with varied scales, 110 buildings and the floor = 111
     volumes, paginated, under a pulled-back camera."""
     scene, cfg = city_path(width=width, height=height, gridsize=gridsize, nx=11, nz=10,
-                           bounces=bounces, vary_scale=True)
+                           bounces=bounces, spp=spp, vary_scale=True)
     cam = make_camera(pos=(-3.4, 2.6, -5.6), target=(0.0, 0.2, 0.0), aspect=width / height)
     return dataclasses.replace(scene, camera=cam), cfg
 
@@ -173,7 +174,7 @@ def monu_like_specs(gridsize=64, seeds=(1, 2, 3)) -> list:
     return specs
 
 
-def monu_like_path(width=1920, height=1080, gridsize=64, bounces=4, seeds=(1, 2, 3)):
+def monu_like_path(width=1920, height=1080, gridsize=64, bounces=4, seeds=(1, 2, 3), spp=1):
     """The bench scene without assets: monu's light and camera
     (presets.py:105-106), the procedural sky, 4-bounce path tracing.
     seeds: one noise model per seed (monu_path's `which`)."""
@@ -183,7 +184,7 @@ def monu_like_path(width=1920, height=1080, gridsize=64, bounces=4, seeds=(1, 2,
                       aspect=width / height)
     scene = _assemble(vols, default_materials(), lights, cam)
     cfg = RenderConfig(width=width, height=height, mode="path",
-                       max_bounces=bounces, activate_sky=True)
+                       max_bounces=bounces, spp=spp, activate_sky=True)
     return scene, cfg
 
 
@@ -261,7 +262,7 @@ def city_like_specs(gridsize=64, nx=11, nz=10, vary_scale=True, seeds=(11, 12, 1
     return specs
 
 
-def city_xl_like_path(width=1920, height=1080, gridsize=64, bounces=4, page=24):
+def city_xl_like_path(width=1920, height=1080, gridsize=64, bounces=4, page=24, spp=1):
     """The 111-volume city scene's layout without its assets: 110
     procedural buildings plus the floor, paginated (5 pages of at most 24
     volumes, morton order), under city_path's light (presets.py:139) and
@@ -272,7 +273,7 @@ def city_xl_like_path(width=1920, height=1080, gridsize=64, bounces=4, page=24):
     cam = make_camera(pos=(-3.4, 2.6, -5.6), target=(0.0, 0.2, 0.0), aspect=width / height)
     scene = _assemble(vols, default_materials(), lights, cam)
     cfg = RenderConfig(width=width, height=height, mode="path",
-                       max_bounces=bounces, activate_sky=True)
+                       max_bounces=bounces, spp=spp, activate_sky=True)
     return scene, cfg
 
 
