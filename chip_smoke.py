@@ -95,7 +95,18 @@ drives the port's two halves of the main path through its entry points:
   and the 1080p fused step with importance = 8 on its long-span bins
   against uniform nodes (K4 at the probes' shape beside index_select):
   each held to the plain versions, timed, counted, with the device's busy
-  share under torch.profiler.
+  share under torch.profiler;
+* the JAX package's last switches (``switches_phase``, [30]): K1's two
+  variants, ``traverse(count_iters=True)`` (each ray's trips) and
+  ``ablate=("norm",)`` (no normal epilogue), on the monu-like and the
+  city_xl_like 1080p primary rays, each held to its plain version (the
+  trips identical; hit, t, vol and cell K1's own), timed per launch in
+  turns with K1, with the trips a ray and the warps' divergence factor
+  (``trip_stats``); the 1080p fused step under each of the relaxed
+  march's six ``_ABLATE_*`` flags and under none (step ms, the
+  gradient's device ms and busy share, launches); the dense per-pair
+  gradient on the largest 1080p band that fits, with and without
+  ``_REMAT`` (peak memory, ms, the gradients within relative L2 1e-6).
 
 The launch counters show that each path went through its kernels, and
 whole images (path, whitted, reproject) and a whole gradient through the
@@ -456,15 +467,19 @@ def turns_text(turns):
 def ptxas_functions(text):
     """ptxas' -v report (the build's .log) per compiled function -> a list
     of dicts (name, stack, spill_stores, spill_loads, registers); the
-    instances of traverse_kernel<mode> are named so."""
+    instances of traverse_kernel<mode> are named so, K1's variants
+    traverse_kernel<nearest, count | no_normals>."""
     out, cur = [], None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             mangled = m.group(1)
-            t = re.search(r"traverse_kernelILi(\d+)E", mangled)
+            t = re.search(r"traverse_kernelILi(\d+)E(?:Li(\d+)E)?", mangled)
             if t:
-                name = f"traverse_kernel<{('nearest', 'occluded')[int(t.group(1))]}>"
+                var = int(t.group(2) or 0)
+                flags = [f for bit, f in ((1, "count"), (2, "no_normals")) if var & bit]
+                name = (f"traverse_kernel<{('nearest', 'occluded')[int(t.group(1))]}"
+                        + (f", {' | '.join(flags)}" if flags else "") + ">")
             else:
                 k = re.search(r"([a-z][a-z0-9_]*kernel[a-z0-9_]*)", mangled)
                 name = k.group(1) if k else mangled
@@ -609,27 +624,30 @@ def same_traversal(k, p, what):
     return max(nerr, max_err(k["t"], p["t"]))
 
 
-def plain_traversal(args, mode):
-    """The plain version of one K1 or K2 call.  It holds [V, N] pair
-    tensors, so only the active rays walk (an idle ray's result is a miss:
-    t BIG, vol -2, cell MAT_NONE, a zero normal), at most PLAIN_PAIRS
-    (volume, ray) pairs at a time."""
+def plain_traversal(args, mode, **variant):
+    """The plain version of one K1 or K2 call (``variant``: traverse's
+    count_iters or ablate).  It holds [V, N] pair tensors, so only the
+    active rays walk (an idle ray's result is a miss: t BIG, vol -2, cell
+    MAT_NONE, a zero normal, 0 trips), at most PLAIN_PAIRS (volume, ray)
+    pairs at a time; the trips of count_iters come from one walk of all
+    rays (``dda_occ.walk_trips`` takes each volume's entering rays alone)."""
     import torch
 
     from voxtracer_torch.core.types import MAT_NONE
     from voxtracer_torch.kernels import traverse
     from voxtracer_torch.kernels.dda import BIG
+    from voxtracer_torch.kernels.dda_occ import walk_trips
 
     n, chunk = args[5].shape[0], max(4096, PLAIN_PAIRS // args[1].shape[0])
     if n <= chunk:
-        return traverse.traverse_plain(*args, mode=mode)
+        return traverse.traverse_plain(*args, mode=mode, **variant)
     rays = args[8].nonzero()[:, 0]
     parts = []
     for i in range(0, rays.shape[0], chunk):
         a, sub = list(args), rays[i:i + chunk]
         for j in (5, 6, 7, 8):
             a[j] = None if args[j] is None else args[j][sub]
-        parts.append(traverse.traverse_plain(*a, mode=mode))
+        parts.append(traverse.traverse_plain(*a, mode=mode, ablate=variant.get("ablate", ())))
     dev = args[5].device
     out = dict(hit=torch.zeros(n, dtype=torch.bool, device=dev))
     if mode == "nearest":
@@ -640,6 +658,8 @@ def plain_traversal(args, mode):
     for f in out:
         if parts:
             out[f][rays] = torch.cat([p[f] for p in parts]).to(out[f].dtype)
+    if variant.get("count_iters"):
+        out["iters"] = walk_trips(*explicit(args))
     return out
 
 
@@ -731,19 +751,20 @@ def least_traversal_ops(args, mode, out):
     return ops, dict(zip(STEPS, steps.sum(1).tolist()))
 
 
-def traverse_bound(args, out, mode):
+def traverse_bound(args, out, mode, least=None):
     """The bound of one traverse() call: the bytes of its active rays
     (origin, direction, t limit where given), the active flags, the enabled
     flags where given, the occupancy plane it walks, its outputs and one
     grid cell per nearest hit; the operations it needs at least
-    (``least_traversal_ops``) -> (bound, the least work's step counts)."""
+    (``least_traversal_ops``, or `least` if given) -> (bound, the least
+    work's step counts)."""
     o, t_limit, act, ven, occ = args[5], args[7], args[8], args[9], args[10]
     na = int(act.sum())
     by = act.numel() + na * (24 + (4 if t_limit is not None else 0)) + nbytes(occ[0])
     by += nbytes(*out.values()) + (ven.numel() if ven is not None else 0)
     if "t" in out:
         by += 4 * int(out["hit"].sum())
-    ops, steps = least_traversal_ops(args, mode, out)
+    ops, steps = least or least_traversal_ops(args, mode, out)
     return bound(by, ops), steps
 
 
@@ -868,6 +889,7 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
     denom = float(n * 3)
     zero = torch.zeros((pre["n_c"], 3), device=dev)
     grad_fn, loss_fn = replay_active.make_replay_grad_fn(scene, cfg, pre, zero, denom)
+    spec, arrs = replay_active.split_pre(pre)
     with captured_lookups(lcalls, every_n=True):
         g = grad_fn(params)
     torch.cuda.synchronize()
@@ -901,7 +923,7 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
 
     def loss64(p):
         with torch.no_grad():
-            img = replay_active.render_replay_active(p, scene, cfg, pre).double()
+            img = replay_active.render_replay_active(p, scene, cfg, spec, arrs).double()
         return float(torch.where(live, img * img, 0.0).sum()) / denom
 
     gd = g.density_logits
@@ -924,7 +946,7 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
     # grey and volume 1's density thinned (logit 6 -> 1), as
     # scripts/demo_inverse_replay.py starts
     with torch.no_grad():
-        target = replay_active.render_replay_active(params, scene, cfg, pre)
+        target = replay_active.render_replay_active(params, scene, cfg, spec, arrs)
     at = params.albedo_table.clone()
     rows = [int(r) for r in torch.unique(pre["m0"][pre["hit"]]) if int(r) < 255][:8]
     at[rows] = 0.5 * at[rows] + 0.25
@@ -937,7 +959,7 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
     for _ in range(3):
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = replay_active.mse_loss_replay_active(tp, scene, cfg, pre, target, denom)
+        loss = replay_active.mse_loss_replay_active(tp, scene, cfg, spec, arrs, target, denom)
         loss.backward()
         opt.step()
         losses.append(float(loss.detach()))
@@ -1029,7 +1051,8 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
 
     def grad_and_image():
         with torch.no_grad():
-            img = replay_active.render_replay_active(sparams, sscene, scfg, spre)
+            img = replay_active.render_replay_active(sparams, sscene, scfg,
+                                                     *replay_active.split_pre(spre))
         return sgrad(sparams), img
 
     ga, ia = grad_and_image()
@@ -1055,7 +1078,8 @@ def replay_phases(scene, cfg, key, smi, reset_counts, counts, time_traversal, me
         ep = volumetric.params_from_scene(escene)
         epre = replay_active.replay_precompute(escene, ecfg, key)
         with torch.no_grad():
-            img_a = replay_active.render_replay_active(ep, escene, ecfg, epre)
+            img_a = replay_active.render_replay_active(ep, escene, ecfg,
+                                                       *replay_active.split_pre(epre))
             ref = path_replay.render_diff_replay(ep, escene, ecfg, key, n_steps=48, seg_steps=24)
         dd = (img_a - ref.reshape(-1, 3)[epre["sel"].long()])[epre["hit"]].abs()
         mean, p95 = float(dd.mean()), float(torch.quantile(dd.reshape(-1), 0.95))
@@ -2142,6 +2166,215 @@ def options_phase(dev, scene, cfg, params, plan, key, smi, reset_counts, counts,
     return paths
 
 
+ABLATIONS = ("_ABLATE_ALB_FETCH", "_ABLATE_BSIG_ADJ", "_ABLATE_CELL_FETCH",
+             "_ABLATE_CELL_SCATTER", "_ABLATE_SPANS", "_ABLATE_CLAMP")
+VARIANT_KERNELS = ("traverse_nearest", "traverse_nearest_count", "traverse_nearest_no_normals")
+DENSE_STEPS = 16  # the dense per-pair march's samples a pair ([26]'s sharded step)
+
+
+def trip_stats(iters, active):
+    """K1's per-ray trips -> mean, p50, p99 and max over the active rays,
+    and the divergence factor: over warps of 32 consecutive rays in launch
+    order, the sum of 32 x each warp's most trips over the sum of all
+    trips (the lane-trips a warp issues per trip some lane needs)."""
+    import torch
+
+    it = iters[active].float()
+    warps = torch.nn.functional.pad(iters.float(), (0, -iters.shape[0] % 32)).reshape(-1, 32)
+    return dict(mean=float(it.mean()), p50=float(torch.quantile(it, 0.5)),
+                p99=float(torch.quantile(it, 0.99)), max=int(it.max()),
+                divergence=float(32.0 * warps.amax(1).sum() / warps.sum()))
+
+
+def switches_phase(dev, scene, cfg, params, plan, key, args1, smi, reset_counts, counts, report):
+    """Phase [30]: the JAX package's last switches on the card, with main's
+    helpers, the monu-like 1080p `scene`, its (2,10)@4 `plan` and K1's
+    call on its primary rays `args1`:
+    * K1's two variants (``traverse(count_iters=True)``, ``ablate=("norm",)``)
+      on those rays and on the city_xl_like 1080p primary rays (111
+      volumes): each held to its plain version (the trips identical), hit,
+      t, vol and cell identical to K1's, per launch beside K1 (the
+      counter's cost, the normal epilogue's share); the trips a ray and the
+      divergence factor (``trip_stats``);
+    * the 1080p fused step under each ``volumetric._ABLATE_*`` flag and
+      under none: step ms, the gradient's device ms and busy share, its
+      launches; every flag is put back in a ``finally``;
+    * the dense per-pair gradient (``span_steps=0``, DENSE_STEPS samples)
+      on the largest 1080p band that fits without ``volumetric._REMAT``,
+      with and without it: peak memory, ms, the gradients within relative
+      L2 1e-6.
+    -> {path: launch counts}."""
+    import torch
+
+    from voxtracer_torch.core.rng import fold_in
+    from voxtracer_torch.diff import train, volumetric
+    from voxtracer_torch.kernels import traverse
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.render.camera import primary_rays
+    from voxtracer_torch.scene.presets import city_xl_like_path
+
+    paths = {}
+
+    # ---- K1's variants on two sets of 1080p primary rays
+    cscene, ccfg = city_xl_like_path(1920, 1080)
+    cscene = cscene.to(dev)
+    cv = cscene.volumes
+    px, py = integrator._pixel_grid(ccfg, dev)
+    co, cd = primary_rays(cscene.camera, ccfg.width, ccfg.height, px, py)
+    cargs = (cv.grids.reshape(-1), cv.gridsize, cv.inv, cv.fwd, cv.cube_min, co.contiguous(),
+             cd.contiguous(), None, torch.ones(co.shape[0], dtype=torch.bool, device=dev), None,
+             cv.occ, cv.bricksize)
+    sets = {"monu_like 1080p primary rays": args1,
+            f"city_xl_like 1080p primary rays ({cv.n} volumes)": cargs}
+    variants = {"count": dict(count_iters=True), "no_normals": dict(ablate=("norm",))}
+    first = {}
+    for label, args in sets.items():
+        act = args[8]
+        k1 = traverse.traverse(*args)
+        reset_counts()
+        got = {v: traverse.traverse(*args, **kw) for v, kw in variants.items()}
+        torch.cuda.synchronize()
+        c = counts()
+        for v in variants:
+            check(c[f"traverse_nearest_{v}"] == 1, f"[30] {label}: the {v} variant not launched")
+        paths[f"[30] K1 variants, {label}"] = {kk: c[kk] for kk in VARIANT_KERNELS}
+        for v, k in got.items():
+            for f in ("hit", "t", "vol", "cell"):
+                check(torch.equal(k[f], k1[f]), f"[30] {label}, {v} variant: {f} is not K1's")
+        check(not any(bool(got["no_normals"][c_].any()) for c_ in ("nx", "ny", "nz")),
+              f"[30] {label}: the no-normals variant wrote normals")
+        errs = {}
+        for v, kw in variants.items():
+            p = plain_traversal(args, "nearest", **kw)
+            errs[v] = same_traversal(got[v], p, f"[30] {label}, {v} variant")
+            if v == "count":
+                check(torch.equal(got[v]["iters"], p["iters"]),
+                      f"[30] {label}: trips differ from the plain walk's")
+            del p
+        ts = trip_stats(got["count"]["iters"], act)
+        # in turns: K1, count, no normals, K1
+        times = [per_launch(lambda kw=kw: traverse.traverse(*args, **kw))
+                 for kw in ({}, variants["count"], variants["no_normals"], {})]
+        k1_ms = statistics.mean((times[0][0], times[3][0]))
+        least = least_traversal_ops(args, "nearest", k1)
+        bnds = {v: traverse_bound(args, got[v], "nearest", least)[0] for v in variants}
+        plain = ({v: per_launch(functools.partial(plain_traversal, args, "nearest", **kw),
+                                windows=3) for v, kw in variants.items()} if not first else None)
+        log(f"[30] K1 variants, {label}: {int(act.sum())} active rays, "
+            f"{int(k1['hit'].sum())} hits; per launch K1 {times[0][0]:.4f} / {times[3][0]:.4f} "
+            f"ms, count {times[1][0]:.4f} ms ({times[1][1]:.1f} us host; the counter "
+            f"{times[1][0] - k1_ms:+.4f} ms, {times[1][0] / k1_ms - 1:+.1%}; bound "
+            f"{bnds['count'][0]:.4f} ms, {bnds['count'][1]}), no normals {times[2][0]:.4f} ms "
+            f"({times[2][1]:.1f} us host; the epilogue's share {1 - times[2][0] / k1_ms:.1%}; "
+            f"bound {bnds['no_normals'][0]:.4f} ms)"
+            + ("" if plain is None else f"; plain count {plain['count'][0]:.4f} ms, plain no "
+               f"normals {plain['no_normals'][0]:.4f} ms")
+            + f"; trips a ray: mean {ts['mean']:.3f}, p50 {ts['p50']:.0f}, p99 {ts['p99']:.0f}, "
+            f"max {ts['max']}; divergence factor {ts['divergence']:.3f} ({smi})")
+        for i, v in enumerate(variants, start=1):
+            entry = dict(call=label, rays=args[5].shape[0], active=int(act.sum()),
+                         ms=times[i][0], host_us=times[i][1], k1_ms=k1_ms,
+                         bound_ms=bnds[v][0], bound_by=bnds[v][1], max_abs_err=errs[v],
+                         **(ts if v == "count" else {}))
+            if v not in first:  # the JSON entry: the first set's figures, every set's call
+                first[v] = [entry]
+                report(f"traverse_nearest_{v}", "voxtracer_torch/csrc/traverse.cu",
+                       "voxtracer/kernels/pallas_dda.py:1048", errs[v], times[i], plain[v],
+                       bnds[v], None, phase=30, calls=first[v])
+            else:
+                first[v].append(entry)
+        del got, k1
+    del cscene, cv, cargs, sets
+
+    # ---- the fused step under each ablation and under none
+    rows = {}
+    try:
+        for flag in (None,) + ABLATIONS:
+            if flag:
+                setattr(volumetric, flag, True)
+            what = flag or "no ablation"
+            reset_counts()
+            loss, grads = train.binned_grads(params, scene, plan)
+            torch.cuda.synchronize()
+            c = {kk: v for kk, v in counts().items() if kk in OPTION_KERNELS}
+            paths[f"[30] 1080p gradient, {what}"] = c
+            check(math.isfinite(float(loss)) and all(
+                bool(torch.isfinite(getattr(grads, f)).all())
+                for f in ("density_logits", "albedo_table")), f"[30] {what}: not finite")
+            if flag is None:
+                for kk in ("traverse_nearest", "lookup_rows", "lookup_rows_bwd"):
+                    check(c[kk] > 0, f"[30] {kk} not launched by the gradient")
+            rows[what] = dict(loss=float(loss), launches=c,
+                              times=host_times(lambda: train.fused_step(params, scene, cfg,
+                                                                        fold_in(key, 1), plan)),
+                              busy=busy_share(lambda: train.binned_grads(params, scene, plan)))
+            if flag:
+                setattr(volumetric, flag, False)
+    finally:
+        for flag in ABLATIONS:
+            setattr(volumetric, flag, False)
+    none = rows["no ablation"]["busy"][0]
+    for what, r in rows.items():
+        t = r["times"]
+        log(f"[30] fused step {cfg.width}x{cfg.height}, (2,10)@4 bins, {what}: median "
+            f"{t[0]:.1f} ms, min {t[1]:.1f} ms, spread {t[2]:.1f} ms; gradient device "
+            f"{r['busy'][0]:.2f} ms of {r['busy'][1]:.1f} ms profiled (busy {r['busy'][2]:.1%}; "
+            f"{1 - r['busy'][0] / none:+.1%} of the unablated gradient's device time saved); loss "
+            f"{r['loss']:.6f}; launches {r['launches']} ({smi})")
+
+    # ---- the dense per-pair gradient with and without the rematerialisation
+    def dense(band):
+        """-> loss, gradients, ms, and the peak memory above what was
+        allocated before the step."""
+        tgt = torch.zeros((band, cfg.width, 3), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, g = volumetric.value_and_grad(volumetric.mse_loss)(params, scene, cfg, tgt,
+                                                                 DENSE_STEPS, rows=band)
+        torch.cuda.synchronize()
+        return (loss, g, (time.perf_counter() - t0) * 1e3,
+                torch.cuda.max_memory_allocated() - held)
+
+    band = None
+    for rows_ in (cfg.height, cfg.height // 2, cfg.height // 4, cfg.height // 8):
+        try:
+            dense(rows_)
+            band = rows_
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    check(band is not None, "[30] no band of the dense gradient fits")
+    reset_counts()
+    loss0, g0, ms0, peak0 = dense(band)
+    paths[f"[30] dense gradient, {band} rows"] = c = {kk: v for kk, v in counts().items()
+                                                     if kk in OPTION_KERNELS}
+    check(c["lookup_rows"] > 0 and c["lookup_rows_bwd"] > 0,
+          "[30] the dense gradient launched no K4 or K4-bwd")
+    volumetric._REMAT = True
+    try:
+        reset_counts()
+        loss1, g1, ms1, peak1 = dense(band)
+        paths[f"[30] dense gradient, {band} rows, remat"] = {kk: v for kk, v in counts().items()
+                                                            if kk in OPTION_KERNELS}
+    finally:
+        volumetric._REMAT = False
+    rel = {f: rel_l2(getattr(g1, f), getattr(g0, f)) for f in ("density_logits", "albedo_table")}
+    for f, r in rel.items():
+        check(r <= 1e-6, f"[30] remat gradient {f}: relative L2 {r} against the stored one")
+    check(float(loss0) == float(loss1), f"[30] remat loss {float(loss1)} against {float(loss0)}")
+    log(f"[30] dense gradient {cfg.width}x{band} (the largest band of 1080 / 2^i rows that fits "
+        f"without remat), {DENSE_STEPS} steps a pair: stored {ms0:.1f} ms, peak "
+        f"{peak0 / 2**30:.2f} GiB ({peak0} bytes above what was held before the step); remat "
+        f"{ms1:.1f} ms, peak {peak1 / 2**30:.2f} GiB ({peak1} bytes): peak x{peak1 / peak0:.3f}, "
+        f"time x{ms1 / ms0:.3f}; gradients "
+        f"relative L2 density {rel['density_logits']:.3g}, albedo {rel['albedo_table']:.3g}; "
+        f"launches stored {paths[f'[30] dense gradient, {band} rows']}, remat "
+        f"{paths[f'[30] dense gradient, {band} rows, remat']} ({smi})")
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3083,13 +3316,20 @@ def main(argv=None) -> int:
                                  measure, results)
     log(f"[29] {time.perf_counter() - t0:.1f} s")
 
+    # ---- 30. the JAX package's last switches: K1's variants, the gradient's
+    # ablations, the rematerialised dense march
+    t0 = time.perf_counter()
+    switch_paths = switches_phase(dev, scene, cfg, params, plan, key, args1, smi, reset_counts,
+                                  counts, report)
+    log(f"[30] {time.perf_counter() - t0:.1f} s")
+
     # ---- results: launches per path, then summed over all of them
     paths = {"path 1080p frame": after_monu,
              "path media frame": {kk: fwd_counts[kk] - after_monu[kk] for kk in fwd_counts},
              "gradient": grad_counts, "whitted 512^2 frame": whitted_counts,
              "reproject 1080p frame 0": rp_counts, "reproject media, 2 frames": media_rp_counts,
              "probe": probe_counts, "city_xl_like 1080p frame": city_counts, **replay_paths,
-             **asset_paths, **live_paths, **option_paths}
+             **asset_paths, **live_paths, **option_paths, **switch_paths}
     for pth, c in paths.items():
         log(f"[launches] {pth}: {c}")
     for r in results:

@@ -19,6 +19,7 @@ import torch
 
 from voxtracer.core import mathx as jmathx
 from voxtracer.core import rng as jrng
+from voxtracer.core import transforms as jtransforms
 from voxtracer.io.hdr import procedural_sky as jax_sky
 from voxtracer.render.camera import make_camera as jax_camera
 from voxtracer.render.camera import primary_rays as jax_primary_rays
@@ -28,7 +29,7 @@ from voxtracer.core.types import GLASS
 from voxtracer.scene import instances as jinst
 from voxtracer.scene import procgen as jprocgen
 from voxtracer.scene.volume import solid_grid as jax_solid_grid
-from voxtracer_torch.core import mathx, rng
+from voxtracer_torch.core import mathx, rng, transforms
 from voxtracer_torch.core.types import Sky
 from voxtracer_torch.io.hdr import procedural_sky
 from voxtracer_torch.render.camera import make_camera, primary_rays
@@ -168,6 +169,26 @@ def test_builders_match_jax(name):
                                       getattr(got, f).numpy(), err_msg=f)
 
 
+@pytest.mark.parametrize("fn", ["transform_point", "transform_vector"])
+def test_transforms_apply_as_jax(fn):
+    """The same float32 arrays: numpy and torch inputs bit-equal to the JAX
+    function on numpy; on JAX arrays XLA's CPU dot rounds as a chain of
+    fused multiply-adds, 1e-6 relative."""
+    rs = np.random.default_rng(3)
+    m = rs.normal(size=(4, 4)).astype(np.float32)
+    p = (rs.normal(size=(7, 5, 3)) * 10.0).astype(np.float32)
+    want = getattr(jtransforms, fn)(m, p)
+    port = getattr(transforms, fn)
+    np.testing.assert_array_equal(port(m, p), want)
+    got = port(torch.from_numpy(m), torch.from_numpy(p))
+    assert isinstance(got, torch.Tensor) and got.shape == (7, 5, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(getattr(jtransforms, fn)(jnp.asarray(m),
+                                                                   jnp.asarray(p))),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_port_imports_neither_jax_nor_reference():
     code = textwrap.dedent("""
         import sys
@@ -180,7 +201,8 @@ def test_port_imports_neither_jax_nor_reference():
         import voxtracer_torch.core.types, voxtracer_torch.kernels.traverse
         import voxtracer_torch.kernels.lookup, voxtracer_torch.kernels.dda_occ
         import voxtracer_torch.diff.path_replay, voxtracer_torch.diff.replay_active
-        import voxtracer_torch.render.camera
+        import voxtracer_torch.render.camera, voxtracer_torch.utils.retry
+        import voxtracer_torch.core.transforms
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "voxtracer")]
         assert not bad, bad

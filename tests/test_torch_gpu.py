@@ -181,6 +181,48 @@ def test_traverse_kernel_volume_counts_and_edge_rays(cuda, nvol, disabled):
         assert bool((k["vol"] == 0).any()) and not bool((k["vol"] == nvol - 1).any())
 
 
+@pytest.mark.parametrize("variant", ["count", "no_normals"])
+@pytest.mark.parametrize("where", ["monu_like primary", "66 volumes, edge rays"])
+def test_traverse_variants_match_plain(cuda, variant, where):
+    """K1's variants against their plain versions: the trip counts
+    identical, hit, t, vol, cell and the normals at K1's bars, and hit, t,
+    vol and cell equal to K1's own; the no-normals variant's normals zero.
+    On the monu_like 512x256 primary rays, and on 66 volumes (ties,
+    disabled volumes, zero-component and NaN directions)."""
+    rng = np.random.default_rng(13)
+    if where == "monu_like primary":
+        scene, cfg = monu_like_path(512, 256, bounces=4)
+        scene = scene.to(cuda)
+        v = scene.volumes
+        vargs, occ, bsz, ven = ((v.grids.reshape(-1), v.gridsize, v.inv, v.fwd, v.cube_min),
+                                v.occ, v.bricksize, None)
+        px, py = integrator._pixel_grid(cfg, cuda)
+        o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px, py)
+        o = o.contiguous()
+        act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    else:
+        vargs, occ, bsz, ven = _edge_scene(rng, 66, cuda, True)
+        o, d = _edge_rays(rng, 16384, cuda)
+        act = torch.from_numpy(rng.uniform(size=16384) < 0.9).to(cuda)
+    args = (*vargs, o, d, None, act, ven, occ, bsz)
+    kw = dict(count_iters=True) if variant == "count" else dict(ablate=("norm",))
+    before = traverse.launches[f"traverse_nearest_{variant}"]
+    k = traverse.traverse(*args, **kw)
+    torch.cuda.synchronize()
+    assert traverse.launches[f"traverse_nearest_{variant}"] == before + 1
+    p = traverse.traverse_plain(*args, **kw)
+    whole = traverse.traverse(*args)
+    _same(k, p, ("hit", "vol", "cell"))
+    for f in ("hit", "t", "vol", "cell"):
+        assert torch.equal(k[f], whole[f]), f
+    assert 0 < int(k["hit"].sum()) < o.shape[0]
+    if variant == "count":
+        assert torch.equal(k["iters"], p["iters"])
+        assert int(k["iters"].max()) > 1 and not bool(k["iters"][~act].any())
+    else:
+        assert not any(bool(k[c].any()) for c in ("nx", "ny", "nz"))
+
+
 def test_traverse_takes_none_defaults(cuda):
     """t_limit None (BIG) and vol_enabled None (every volume) give what the
     explicit tensors give, in both modes."""
@@ -684,7 +726,8 @@ def test_replay_gradients_kernels_match_plain(cuda):
 
     def run():
         with torch.no_grad():
-            img = replay_active.render_replay_active(params, scene, cfg, pre)
+            img = replay_active.render_replay_active(params, scene, cfg,
+                                                     *replay_active.split_pre(pre))
             mimg = path_replay.render_diff_replay(mparams, mscene, mcfg, make_key(0))
         return grad_fn(params), img, vg(mparams, mscene, mcfg, target, make_key(0))[1], mimg
 
@@ -744,7 +787,8 @@ def test_replay_brick_lead_and_tail_kernels_match_plain(cuda):
 
     def run():
         with torch.no_grad():
-            img = replay_active.render_replay_active(params, scene, cfg, pre)
+            img = replay_active.render_replay_active(params, scene, cfg,
+                                                     *replay_active.split_pre(pre))
         return grad_fn(params), img
 
     ga, ia = run()

@@ -161,8 +161,13 @@ def _phase2_against_jax(w, jpre, width, height):
         return img, vjp(jnp.where(live, 2.0 * (img - jnp.asarray(target)), 0.0) / denom)[0]
 
     img, g = jax.jit(img_and_grad)(w["jp"], arrs)
-    got = tra.render_replay_active(w["tp"], w["tscene"], w["tcfg"], pre).detach()
+    got = tra.render_replay_active(w["tp"], w["tscene"], w["tcfg"], *tra.split_pre(pre)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(img), rtol=1e-5, atol=1e-5)
+    loss = tra.mse_loss_replay_active(w["tp"], w["tscene"], w["tcfg"], *tra.split_pre(pre),
+                                      torch.from_numpy(target), denom)
+    live = np.arange(jpre["n_c"]) < jpre["n_hit"]
+    jloss = float((((np.asarray(img) - target) ** 2).sum(-1) * live).sum()) / denom
+    assert abs(float(loss) - jloss) <= 1e-5 * jloss, (float(loss), jloss)
     grad_fn, loss_fn = tra.make_replay_grad_fn(w["tscene"], w["tcfg"], pre,
                                                torch.from_numpy(target), denom)
     tg = grad_fn(w["tp"])
@@ -172,6 +177,39 @@ def _phase2_against_jax(w, jpre, width, height):
     assert rel_a <= 1e-2, rel_a
     assert np.isfinite(float(loss_fn(w["tp"])))
     return pre, got, tg, g
+
+
+def test_split_pre_matches_jax(world):
+    """The port's split of JAX's own precompute: the JAX split's keys at
+    every level, its spec values, and in arrs the tensors pre holds."""
+    jspec, jarrs = jra.split_pre(world["jpre"])
+    pre = replay_pre_from_numpy(jax.tree.map(np.asarray, world["jpre"]), device="cpu")
+    spec, arrs = tra.split_pre(pre)
+
+    def keys(t):
+        if isinstance(t, dict):
+            return {k: keys(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [keys(v) for v in t]
+        return None
+
+    assert keys(spec) == keys(jspec) and keys(arrs) == keys(jarrs)
+
+    def ints(t):
+        if isinstance(t, dict):
+            return {k: ints(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [ints(v) for v in t]
+        return int(t)
+
+    assert ints(spec) == ints(jspec)
+    assert arrs["lanes"]["bg"] is pre["bg"] and arrs["lr"] is pre["light_rads"]
+    for nm, m in pre["marches"].items():
+        for k, v in arrs["marches"][nm].items():
+            assert v is m[k], (nm, k)
+    for nm, lst in pre["light_marches"].items():
+        for m, a in zip(lst, arrs["lm"][nm]):
+            assert all(a[k] is m[k] for k in a), nm
 
 
 def test_render_replay_active_and_gradient_match_jax(world):
@@ -224,7 +262,7 @@ def test_brick_lead_and_tail_match_jax():
                 light_marches={k: [dict(m, lead_steps=0) for m in ms]
                                for k, ms in pre["light_marches"].items()})
     with torch.no_grad():
-        img0 = tra.render_replay_active(w["tp"], w["tscene"], w["tcfg"], bare)
+        img0 = tra.render_replay_active(w["tp"], w["tscene"], w["tcfg"], *tra.split_pre(bare))
     lead_img = (img - img0).abs().amax(-1)
     # the empty bricks' cells take their gradient through the brick sigma
     # alone: no core sample lies outside the occupied slab
@@ -258,7 +296,7 @@ def test_active_matches_the_capability_estimator(monu):
     span-clamped quadrature: images agree on the non-media hit lanes to
     quadrature tolerance."""
     scene, cfg, params, key, pre = monu
-    img_a = tra.render_replay_active(params, scene, cfg, pre).detach().numpy()
+    img_a = tra.render_replay_active(params, scene, cfg, *tra.split_pre(pre)).detach().numpy()
     with torch.no_grad():
         ref = tpr.render_diff_replay(params, scene, cfg, key, n_steps=48, seg_steps=24).numpy()
     d = np.abs(img_a - ref.reshape(-1, 3)[pre["sel"].numpy()])[pre["hit"].numpy()]

@@ -8,6 +8,16 @@ to a clipped gather.  They are held against the JAX package's CPU paths:
 ``traverse_occ``.  Bars, as tests/test_pallas_dda.py sets them: hit, vol
 and cell exact; t within 1e-6; normals within 1e-5.
 
+K1's two variants, ``traverse(count_iters=True)`` and
+``traverse(ablate=("norm",))``, are held through their plain versions
+against the Pallas kernel ``traverse_pallas`` in interpret mode, at the
+same bars.  The two loops count trips differently: the Pallas kernel
+walks candidates in entry order with ``macro_pre`` extra empty-brick
+skips a trip and one more trip to find a lane done; the port counts the
+trips of its own walk (csrc/traverse.cu: the volumes in index order).  On
+one volume with ``macro_pre=0`` the Pallas count is the port's plus one
+on every active ray; otherwise the port's count is held to its own walk.
+
 The CUDA kernels themselves are held against these plain versions on the
 card in tests/test_torch_gpu.py.
 """
@@ -21,6 +31,7 @@ from voxtracer.core.types import GLASS as JGLASS
 from voxtracer.core.types import MAT_NONE, SMOKE_MID_DENSITY
 from voxtracer.kernels import dda_occ as jdda_occ
 from voxtracer.kernels import primitives as jprim
+from voxtracer.kernels.pallas_dda import traverse_pallas
 from voxtracer.scene.instances import VolumeSpec, build_volumes
 from voxtracer.scene.instances import make_spheres as jax_make_spheres
 from voxtracer.scene.instances import make_triangles as jax_make_triangles
@@ -110,6 +121,83 @@ def test_nearest_matches_jax(seed):
     for ref in refs:
         _assert_same(ref, got, "hit", ("vol", "cell"))
     assert int(got["hit"].sum()) > 0
+
+
+def _aimed_rays(rng, vols, n=384):
+    """Rays from random origins toward random points of random volumes, a
+    tenth of them inactive."""
+    o = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    vi = rng.integers(0, vols.n, n)
+    c = np.asarray(vols.cube_min)[vi] + 0.5 + rng.uniform(-0.4, 0.4, (n, 3))
+    fwd = np.asarray(vols.fwd)[vi]
+    d = np.einsum("nij,nj->ni", fwd[:, :3, :3], c) + fwd[:, :3, 3] - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d, rng.uniform(size=n) < 0.9
+
+
+def _variant_case(seed, nvol):
+    rng = np.random.default_rng(seed)
+    vols = _rand_scene(rng, nvol=nvol)
+    o, d, act = _aimed_rays(rng, vols)
+    n = o.shape[0]
+    jargs = (*_jax_args(vols), jnp.asarray(o), jnp.asarray(d), jnp.full(n, BIG, jnp.float32),
+             jnp.asarray(act), jnp.ones(nvol, bool), jnp.asarray(vols.occ),
+             jnp.asarray(vols.bricksize))
+    targs = (*_torch_args(vols), torch.from_numpy(o), torch.from_numpy(d), None,
+             torch.from_numpy(act), None, *_torch_occ(vols))
+    return jargs, targs, act
+
+
+def test_no_normals_variant_matches_jax():
+    jargs, targs, _ = _variant_case(20, 3)
+    ref = traverse_pallas(*jargs, mode="nearest", interpret=True, ablate=("norm",))
+    got = traverse.traverse(*targs, ablate=("norm",))
+    whole = traverse.traverse(*targs)
+    _assert_same(ref, got, "hit", ("vol", "cell"))
+    for f in ("hit", "t", "vol", "cell"):
+        assert torch.equal(got[f], whole[f]), f
+    for c in ("nx", "ny", "nz"):
+        assert not np.asarray(ref[c]).any() and not got[c].any(), c
+    assert int(got["hit"].sum()) > 0 and bool(whole["nx"].abs().sum() > 0)
+
+
+@pytest.mark.parametrize("nvol,macro_pre", [(1, 0), (3, 2)])
+def test_count_variant_matches_jax(nvol, macro_pre):
+    jargs, targs, act = _variant_case(21 + nvol, nvol)
+    ref = traverse_pallas(*jargs, mode="nearest", interpret=True, count_iters=True,
+                          macro_pre=macro_pre)
+    got = traverse.traverse(*targs, count_iters=True)
+    whole = traverse.traverse(*targs)
+    # the Pallas kernel returns its count where the cell was
+    _assert_same(ref, got, "hit", ("vol",))
+    for f in ("hit", "t", "vol", "cell", "nx", "ny", "nz"):
+        assert torch.equal(got[f], whole[f]), f
+    it, jit_ = got["iters"].numpy(), np.asarray(ref["iters"])
+    assert got["iters"].dtype == torch.int32
+    assert not it[~act].any() and not jit_[~act].any()
+    enters = (entry_t(targs[2], targs[4], targs[5], targs[6]) < 1e33).any(0).numpy() & act
+    assert (it[enters] >= 1).all() and not it[act & ~enters].any()
+    if nvol == 1 and macro_pre == 0:
+        np.testing.assert_array_equal(jit_[act], it[act] + 1)
+    # a ray that enters one volume: the lockstep walk's trips ("rows")
+    tally = {}
+    traverse.traverse_plain(*targs, ray_tally=tally)
+    one = act & ((entry_t(targs[2], targs[4], targs[5], targs[6]) < 1e33).sum(0).numpy() == 1)
+    assert one.sum() > 0
+    np.testing.assert_array_equal(it[one], tally["rows"].numpy()[one])
+
+
+def test_variants_refuse_what_the_port_has_not():
+    jargs, targs, _ = _variant_case(20, 1)
+    for kw in (dict(ablate=("cand",)), dict(ablate=("pal",)), dict(ablate=("nrm",)),
+               dict(count_iters=True, ablate=("norm",))):
+        with pytest.raises(ValueError):
+            traverse.traverse(*targs, **kw)
+    occl = list(targs)
+    occl[7] = torch.full((targs[5].shape[0],), BIG)
+    for kw in (dict(count_iters=True), dict(ablate=("norm",))):
+        with pytest.raises(ValueError, match="nearest mode only"):
+            traverse.traverse(*occl, mode="occluded", **kw)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

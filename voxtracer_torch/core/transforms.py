@@ -1,4 +1,5 @@
-"""Host-side 4x4 transform builders (NumPy; scene construction only).
+"""Host-side 4x4 transform builders (NumPy; scene construction only) and
+their application to batches of points and vectors.
 
 Counterpart of voxtracer/core/transforms.py, kept arithmetic-for-arithmetic
 equal so both packages build the same ``inv``/``fwd`` matrices.
@@ -82,3 +83,14 @@ def volume_transforms(position, scl, rotation_xyz=(0.0, 0.0, 0.0), rot_mat4=None
     fwd = t_pivot @ s @ r @ t_back
     inv = np.linalg.inv(t_pivot @ r @ s @ t_back).astype(np.float32)
     return fwd.astype(np.float32), inv
+
+
+def transform_point(m, p):
+    """Apply a 4x4 transform to points [..., 3]: numpy arrays or torch
+    tensors, the same expression in the same order as the JAX package's."""
+    return p @ m[:3, :3].T + m[:3, 3]
+
+
+def transform_vector(m, v):
+    """Apply a 4x4 transform's linear part to vectors [..., 3]."""
+    return v @ m[:3, :3].T

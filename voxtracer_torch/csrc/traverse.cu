@@ -61,6 +61,10 @@ constexpr int MAT_NONE = 255;
 constexpr int MODE_NEAREST = 0;
 constexpr int MODE_OCCLUDED = 1;
 constexpr int MODE_EXIT = 2;
+// K1's variants (a compile-time flag set; 0 is the K1 every path launches):
+// COUNT writes each ray's outer trips, NO_NORMALS skips the normal epilogue
+constexpr int VAR_COUNT = 1;
+constexpr int VAR_NO_NORMALS = 2;
 // the packed constants table: 26 floats a volume
 constexpr int VT = 26, VT_FWD = 12, VT_MIN = 21, VT_GS = 24, VT_MS = 25;
 
@@ -184,6 +188,7 @@ struct WalkResult {
   float t_hit;  // t of that cell
   int cell;     // (px * side + py) * side + pz of that cell
   float t_out;  // exit: the t the ray leaves the medium or the grid
+  int trips;    // outer iterations taken (read by K1's COUNT variant only)
 };
 
 // One ray through one volume: dda_occ._core for a single pair.  t0 is the
@@ -229,7 +234,8 @@ __device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
   int mpx = mx.p, mpy = my.p, mpz = mz.p;
   float mtmx = mx.tmax, mtmy = my.tmax, mtmz = mz.tmax;
 
-  for (int outer = 0; active && outer < 1024; ++outer) {
+  int outer = 0;
+  for (; active && outer < 1024; ++outer) {
     // the current brick: one bit of the bitmask says whether it is empty
     const int midx = (mpx * mside + mpy) * mside + mpz;
     const int* row = rows + 16 * midx;
@@ -315,6 +321,7 @@ __device__ __forceinline__ WalkResult walk(const Ray& r, float t0,
       if (!is_exit && !(mt_new < tl)) active = false;
     }
   }
+  res.trips = outer;
   return res;
 }
 
@@ -377,10 +384,14 @@ __device__ __forceinline__ bool may_enter(const float* wb, float ox, float oy, f
 // index order.  A volume is walked as soon as its entry test passes; one
 // entered after the best hit so far (or t_limit) cannot win and is
 // skipped, and K2 stops at its first hit.
-// out: nearest: t, vol, cell, nx, ny, nz ([n] each, f32 or i32), then the
-// hit bytes; occluded: the hit bytes alone.  t_limit null means BIG,
-// vol_enabled null every volume.
-template <int MODE>
+// out: nearest: t, vol, cell, nx, ny, nz ([n] each, f32 or i32), with
+// VAR_COUNT the trips [n] i32, then the hit bytes; occluded: the hit bytes
+// alone.  t_limit null means BIG, vol_enabled null every volume.  VAR (K1
+// only) selects a variant: VAR_COUNT sums each ray's outer trips over the
+// volumes it walks (0 for an inactive ray), VAR_NO_NORMALS writes zero
+// normals without the epilogue; hit, t, vol and cell are the same in every
+// variant.
+template <int MODE, int VAR = 0>
 __global__ void __launch_bounds__(THREADS)
 traverse_kernel(Tables tb, const float* __restrict__ o,
                 const float* __restrict__ d, const float* __restrict__ t_limit,
@@ -399,7 +410,7 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
 
   bool best_hit = false;
   float best_t = BIG;
-  int best_vol = -2, best_gidx = 0;
+  int best_vol = -2, best_gidx = 0, trips = 0;
   if (active[i]) {
     for (int v = 0; v < tb.v && !(MODE == MODE_OCCLUDED && best_hit); ++v) {
       if ((vol_enabled != nullptr && vol_enabled[v] == 0) ||
@@ -415,6 +426,7 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
       const float limit = nmin(tl, __int_as_float(__float_as_int(best_t) + 1));
       WalkResult w = walk<MODE>(r, t0, m, tb.side, tb.mside, tb.bm, v * m3,
                                 tb.occ + (size_t)v * m3 * 16, limit);
+      if (VAR & VAR_COUNT) trips += w.trips;
       if (w.hit && (MODE == MODE_OCCLUDED || !best_hit || w.t_hit < best_t ||
                     (w.t_hit == best_t && v < best_vol))) {
         best_hit = true;
@@ -429,7 +441,7 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
     return;
   }
   float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-  if (best_hit) {
+  if (!(VAR & VAR_NO_NORMALS) && best_hit) {
     const float* m = tb.vtab + best_vol * VT;
     normal_at(m, object_ray(m, wox, woy, woz, wdx, wdy, wdz), best_t, nx, ny, nz);
   }
@@ -441,7 +453,9 @@ traverse_kernel(Tables tb, const float* __restrict__ o,
   of[3 * (size_t)n + i] = nx;
   of[4 * (size_t)n + i] = ny;
   of[5 * (size_t)n + i] = nz;
-  reinterpret_cast<uint8_t*>(of + 6 * (size_t)n)[i] = best_hit ? 1 : 0;
+  constexpr int kFields = (VAR & VAR_COUNT) ? 7 : 6;
+  if (VAR & VAR_COUNT) oi[6 * (size_t)n + i] = trips;
+  reinterpret_cast<uint8_t*>(of + kFields * (size_t)n)[i] = best_hit ? 1 : 0;
 }
 
 // K3: march each active ray through its own volume until it leaves the
@@ -500,18 +514,24 @@ inline bool fits(int v, int side) {
 
 extern "C" {
 
-// mode: 0 nearest, 1 occluded.  t_limit and vol_enabled may be null.
-int vt_traverse(int mode, const float* o, const float* d, const float* t_limit,
+// mode: 0 nearest, 1 occluded; variant: 0, or VAR_COUNT or VAR_NO_NORMALS
+// in nearest mode.  t_limit and vol_enabled may be null.
+int vt_traverse(int mode, int variant, const float* o, const float* d, const float* t_limit,
                 const uint8_t* active, const uint8_t* vol_enabled, const float* vtab,
                 const unsigned* bm, const int* occ, const int* grids, const float* wbox,
                 int n, int v, int side, int mside, int words, void* out,
                 cudaStream_t stream) {
-  if (!fits(v, side) || (mode != MODE_NEAREST && mode != MODE_OCCLUDED))
+  if (!fits(v, side) || (mode != MODE_NEAREST && mode != MODE_OCCLUDED) ||
+      (variant != 0 && (mode != MODE_NEAREST ||
+                        (variant != VAR_COUNT && variant != VAR_NO_NORMALS))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   Tables tb{vtab, bm, occ, grids, wbox, v, side, mside, words};
-  auto kernel = mode == MODE_NEAREST ? traverse_kernel<MODE_NEAREST>
-                                     : traverse_kernel<MODE_OCCLUDED>;
+  decltype(&traverse_kernel<MODE_NEAREST>) kernel;
+  if (mode == MODE_OCCLUDED) kernel = traverse_kernel<MODE_OCCLUDED>;
+  else if (variant == 0) kernel = traverse_kernel<MODE_NEAREST>;
+  else if (variant == VAR_COUNT) kernel = traverse_kernel<MODE_NEAREST, VAR_COUNT>;
+  else kernel = traverse_kernel<MODE_NEAREST, VAR_NO_NORMALS>;
   kernel<<<blocks_for(n), THREADS, 0, stream>>>(tb, o, d, t_limit, active, vol_enabled, n, out);
   return (int)cudaGetLastError();
 }

@@ -21,10 +21,10 @@ the geometry and a per-step march over only the segments that need it.
   backward), then an elementwise assembly of the radiance from the
   delivered optical depths, the albedo rows and the frozen factors.
 
-The precompute's dict goes to phase 2 as it is; the JAX package's
-``split_pre`` (which kept its arrays out of a compiled program) has no
-counterpart.  ``scene.convert.replay_pre_from_numpy`` carries a JAX
-precompute across.
+Phase 2 takes the precompute as ``split_pre`` splits it, as the JAX
+package's does: ``spec`` (the counts and each march's static fields) and
+``arrs`` (the same tensors ``pre`` holds, no copy).
+``scene.convert.replay_pre_from_numpy`` carries a JAX precompute across.
 """
 
 from __future__ import annotations
@@ -204,20 +204,21 @@ class _Deliver(torch.autograd.Function):
         return d_tau, None
 
 
-def _march_taus(scene: Scene, march, density_scale: float, dens_flat, cell_tab, bsig):
-    """The phase-2 march of one march dict: per bin the core span samples
-    and the brick-granular lead and tail -> the integral per segment,
-    delivered to its lanes [n_lanes] through inv_map (0 for none).  Kind 0
-    integrates sigma (optical depth), kind 1 the soft occupancy."""
+def _march_taus(scene: Scene, sp, ar, density_scale: float, dens_flat, cell_tab, bsig):
+    """The phase-2 march of one march, its static fields `sp` and its
+    tensors `ar` (``split_pre``): per bin the core span samples and the
+    brick-granular lead and tail -> the integral per segment, delivered to
+    its lanes [n_lanes] through inv_map (0 for none).  Kind 0 integrates
+    sigma (optical depth), kind 1 the soft occupancy."""
     dev = scene.device
-    if march["m"] == 0:
-        return torch.zeros(march["n_lanes"], dtype=F32, device=dev)
+    if sp["m"] == 0:
+        return torch.zeros(sp["n_lanes"], dtype=F32, device=dev)
     delta = 4.0 / density_scale
 
     def integrand(sig):
-        return (1.0 - torch.exp(-sig * delta)) if march["kind"] == 1 else sig
+        return (1.0 - torch.exp(-sig * delta)) if sp["kind"] == 1 else sig
 
-    vo, vd = _object_rays(scene, march["o"], march["d"])
+    vo, vd = _object_rays(scene, ar["o"], ar["d"])
 
     def seg_sum(t_lo, t_hi, steps, lo_i, hi_i, brick):
         t_lo_b, t_hi_b = t_lo[lo_i:hi_i], t_hi[lo_i:hi_i]
@@ -234,18 +235,18 @@ def _march_taus(scene: Scene, march, density_scale: float, dens_flat, cell_tab, 
             acc = acc + torch.where(inside_any, integrand(sig), 0.0) * dt
         return acc
 
-    ls = march["lead_steps"]
+    ls = sp["lead_steps"]
     parts = []
-    for steps, lo_i, hi_i in march["bins"]:
+    for steps, lo_i, hi_i in sp["bins"]:
         part = torch.zeros(hi_i - lo_i, dtype=F32, device=dev)
         if steps > 0:
-            part = part + seg_sum(march["s0"], march["s1"], steps, lo_i, hi_i, False)
+            part = part + seg_sum(ar["s0"], ar["s1"], steps, lo_i, hi_i, False)
         if ls > 0:
-            part = part + seg_sum(march["t_lo"], march["s0"], ls, lo_i, hi_i, True)
-            part = part + seg_sum(march["s1"], march["t_hi"], ls, lo_i, hi_i, True)
+            part = part + seg_sum(ar["t_lo"], ar["s0"], ls, lo_i, hi_i, True)
+            part = part + seg_sum(ar["s1"], ar["t_hi"], ls, lo_i, hi_i, True)
         parts.append(part)
     parts.append(torch.zeros(1, dtype=F32, device=dev))
-    return _Deliver.apply(torch.cat(parts), march["inv_map"].long())
+    return _Deliver.apply(torch.cat(parts), ar["inv_map"].long())
 
 
 def replay_precompute(scene: Scene, cfg, key, steps=(2, 10), tau0_steps=(4, 16)):
@@ -365,58 +366,93 @@ def replay_precompute(scene: Scene, cfg, key, steps=(2, 10), tau0_steps=(4, 16))
 # Phase 2: the differentiable assembly, every step
 # --------------------------------------------------------------------------
 
-def render_replay_active(params: DiffParams, scene: Scene, cfg, pre,
+def split_pre(pre):
+    """pre -> (spec, arrs), the JAX package's split, key for key: spec the
+    counts and each march's static fields, arrs the march tensors
+    (``arrs["marches"]``, ``arrs["lm"]``), the light radiances
+    (``arrs["lr"]``) and the 12 lane tensors (``arrs["lanes"]``), the
+    same tensors ``pre`` holds."""
+    ak = ("o", "d", "t_lo", "t_hi", "s0", "s1", "inv_map")
+
+    def sm(m):
+        return ({k: v for k, v in m.items() if k not in ak},
+                {k: m[k] for k in ak if k in m})
+
+    spec_m, arr_m = {}, {}
+    for nm, m in pre["marches"].items():
+        spec_m[nm], arr_m[nm] = sm(m)
+    spec_lm, arr_lm = {}, {}
+    for nm, lst in pre["light_marches"].items():
+        pairs = [sm(m) for m in lst]
+        spec_lm[nm] = [q[0] for q in pairs]
+        arr_lm[nm] = [q[1] for q in pairs]
+    lane_keys = ("hit", "m0", "bounce", "bounce2", "shade0", "m1", "hit1",
+                 "sky1", "m2", "hit2", "sky2", "bg")
+    arrs = dict(marches=arr_m, lm=arr_lm, lr=pre["light_rads"],
+                lanes={k: pre[k] for k in lane_keys})
+    spec = dict(n=pre["n"], n_c=pre["n_c"], n_hit=pre["n_hit"],
+                media_lanes=pre["media_lanes"], marches=spec_m, lm=spec_lm)
+    return spec, arrs
+
+
+def render_replay_active(params: DiffParams, scene: Scene, cfg, spec, arrs,
                          density_scale: float = 64.0):
     """Radiance of the compacted hit lanes [n_c, 3] from the frozen
-    geometry of ``replay_precompute``, differentiable in params only: the
-    two-bounce diffuse/metal replay estimator (glass and smoke primary
-    lanes shade their frozen background)."""
+    geometry of ``replay_precompute``, split by ``split_pre``,
+    differentiable in params only: the two-bounce diffuse/metal replay
+    estimator (glass and smoke primary lanes shade their frozen
+    background)."""
     dens_flat = softplus(params.density_logits).reshape(-1) * density_scale
     cell_tab = torch.stack([dens_flat.detach(), scene.volumes.grids.reshape(-1).to(F32)], dim=1)
     bsig = _brick_mean_sigma(params, scene, density_scale)
     alb_tab = params.albedo_table
+    lanes = arrs["lanes"]
 
-    def taus(march):
-        return _march_taus(scene, march, density_scale, dens_flat, cell_tab, bsig)
+    def taus(sp, ar):
+        return _march_taus(scene, sp, ar, density_scale, dens_flat, cell_tab, bsig)
 
     def direct(name):
-        acc = torch.zeros((pre["n_c"], 3), dtype=F32, device=scene.device)
-        for march, (rad, gate) in zip(pre["light_marches"][name], pre["light_rads"][name]):
-            vs = torch.where(gate, torch.exp(-taus(march)), 0.0)
+        acc = torch.zeros((spec["n_c"], 3), dtype=F32, device=scene.device)
+        for sp, ar, (rad, gate) in zip(spec["lm"][name], arrs["lm"][name], arrs["lr"][name]):
+            vs = torch.where(gate, torch.exp(-taus(sp, ar)), 0.0)
             acc = acc + vs[:, None] * rad
         return acc
 
-    w0 = 1.0 - torch.exp(-taus(pre["marches"]["tau0"]))
-    alb0 = _rows(alb_tab, torch.clamp(pre["m0"], 0, 255))
+    def march(name):
+        return taus(spec["marches"][name], arrs["marches"][name])
+
+    w0 = 1.0 - torch.exp(-march("tau0"))
+    alb0 = _rows(alb_tab, torch.clamp(lanes["m0"], 0, 255))
     e0 = direct("e0")
     # render_diff_replay shades direct0 = alb0 E0 at every non-media hit
-    direct0 = torch.where(pre["shade0"][:, None], alb0 * e0, 0.0)
+    direct0 = torch.where(lanes["shade0"][:, None], alb0 * e0, 0.0)
 
-    v01 = torch.exp(-taus(pre["marches"]["tau01"]))
-    v12 = torch.exp(-taus(pre["marches"]["tau12"]))
-    alb1 = _rows(alb_tab, torch.clamp(pre["m1"], 0, 255))
-    alb2 = _rows(alb_tab, torch.clamp(pre["m2"], 0, 255))
+    v01 = torch.exp(-march("tau01"))
+    v12 = torch.exp(-march("tau12"))
+    alb1 = _rows(alb_tab, torch.clamp(lanes["m1"], 0, 255))
+    alb2 = _rows(alb_tab, torch.clamp(lanes["m2"], 0, 255))
     e1 = direct("e1")
     e2 = direct("e2")
-    l2 = torch.where(pre["hit2"][:, None], alb2 * e2, pre["sky2"])
+    l2 = torch.where(lanes["hit2"][:, None], alb2 * e2, lanes["sky2"])
     rad2 = v12[:, None] * l2
-    l1 = torch.where(pre["hit1"][:, None],
-                     alb1 * (e1 + torch.where(pre["bounce2"][:, None], rad2, 0.0)), pre["sky1"])
-    bounce_rad = torch.where(pre["bounce"][:, None], alb0 * v01[:, None] * l1, 0.0)
+    l1 = torch.where(lanes["hit1"][:, None],
+                     alb1 * (e1 + torch.where(lanes["bounce2"][:, None], rad2, 0.0)),
+                     lanes["sky1"])
+    bounce_rad = torch.where(lanes["bounce"][:, None], alb0 * v01[:, None] * l1, 0.0)
 
     lsurf = direct0 + bounce_rad
-    bg = pre["bg"]
-    return torch.where(pre["hit"][:, None], w0[:, None] * lsurf + (1.0 - w0)[:, None] * bg, bg)
+    bg = lanes["bg"]
+    return torch.where(lanes["hit"][:, None], w0[:, None] * lsurf + (1.0 - w0)[:, None] * bg, bg)
 
 
-def mse_loss_replay_active(params: DiffParams, scene: Scene, cfg, pre, target_active,
+def mse_loss_replay_active(params: DiffParams, scene: Scene, cfg, spec, arrs, target_active,
                            denom: float, density_scale: float = 64.0):
     """Sum of squared errors over the compacted hit lanes / denom: with
     denom the full frame's element count, exactly the gradient of the
     full-image MSE (pixels without a hit render the frozen bg)."""
-    img = render_replay_active(params, scene, cfg, pre, density_scale)
+    img = render_replay_active(params, scene, cfg, spec, arrs, density_scale)
     err = ((img - target_active) ** 2).sum(dim=-1)
-    err = torch.where(torch.arange(pre["n_c"], device=img.device) < pre["n_hit"], err, 0.0)
+    err = torch.where(torch.arange(spec["n_c"], device=img.device) < spec["n_hit"], err, 0.0)
     return err.sum() / denom
 
 
@@ -424,8 +460,10 @@ def make_replay_grad_fn(scene: Scene, cfg, pre, target_active, denom: float,
                         density_scale: float = 64.0):
     """-> (grad_fn, loss_fn): params -> DiffParams of gradients, and
     params -> the loss (no graph)."""
+    spec, arrs = split_pre(pre)
+
     def loss(params):
-        return mse_loss_replay_active(params, scene, cfg, pre, target_active, denom,
+        return mse_loss_replay_active(params, scene, cfg, spec, arrs, target_active, denom,
                                       density_scale)
 
     vg = value_and_grad(loss)

@@ -35,20 +35,26 @@ The host helpers (``active_ray_permutation``, ``span_cells_bins``,
 ``max_aabb_crossings``) stay numpy, written as the JAX package writes
 them, so their permutations are bit-equal to its.
 
-Not ported: the profiling ablation flags and the rematerialisation
-switch, both default-off in the JAX package.  The JAX functions' unused
-arguments are dropped:
+``VOXTRACER_DIFF_REMAT=1`` (read at import into ``_REMAT``) runs each
+step of the dense per-pair scan under ``torch.utils.checkpoint``: the
+backward re-runs the step's forward, a second cell-row gather and
+albedo lookup included, instead of keeping its activations.  The six
+``_ABLATE_*`` flags, read when a march runs, each remove one stage to
+measure its share of the gradient's time; all are off unless set.  The
+JAX functions' unused arguments are dropped:
 ``key`` of render_diff and mse_loss, ``cfg`` of render_diff_active and
 mse_loss_active.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from voxtracer_torch.core.types import MAT_NONE, Scene, _Record
 from voxtracer_torch.kernels import lookup
@@ -62,6 +68,22 @@ F32 = torch.float32
 I32 = torch.int32
 BIG = 1e34
 SEG_CHUNK = 32  # core steps per batched segment: bounds the [C, N] intermediates
+
+# rematerialise the dense per-pair scan in backward: each step's
+# activations are recomputed (one more forward, a second cell-row gather
+# and albedo lookup) instead of stored.  The union-span march bounds its
+# activations by SEG_CHUNK instead and is not affected.  Off by default.
+_REMAT = os.environ.get("VOXTRACER_DIFF_REMAT", "0") == "1"
+
+# profiling-only ablations: each zeroes one adjoint or skips one forward
+# stage, to measure its share of the gradient's time.  Never set outside
+# profiling.
+_ABLATE_CELL_SCATTER = False  # zero density scatter in _CellFetch's backward
+_ABLATE_BSIG_ADJ = False      # zero brick-sigma adjoint
+_ABLATE_CLAMP = False         # skip the transmittance-clamp nearest pass
+_ABLATE_SPANS = False         # raw AABB intervals instead of occupied spans
+_ABLATE_CELL_FETCH = False    # constant rows instead of the per-cell gather
+_ABLATE_ALB_FETCH = False     # constant albedo instead of the per-step lookup
 
 
 @dataclass
@@ -110,25 +132,50 @@ class _CellFetch(torch.autograd.Function):
         ci = torch.clamp(idx.long(), 0, cell_tab.shape[0] - 1)
         ctx.save_for_backward(ci)
         ctx.t = dens_flat.shape[0]
+        if _ABLATE_CELL_FETCH:
+            return cell_tab.new_ones((ci.shape[0], 2))
         return cell_tab[ci]
 
     @staticmethod
     def backward(ctx, ct):
         (ci,) = ctx.saved_tensors
         d_dens = torch.zeros(ctx.t, dtype=ct.dtype, device=ct.device)
+        if _ABLATE_CELL_SCATTER:
+            return d_dens, None, None
         return d_dens.index_add_(0, ci, ct[:, 0]), None, None
+
+
+class _ConstRows(LookupRows):
+    """``_ABLATE_ALB_FETCH``: rows of 0.5 in place of the lookup (no
+    kernel launch); the table's gradient is LookupRows' own."""
+
+    @staticmethod
+    def forward(ctx, tab, idx):
+        ctx.save_for_backward(idx)
+        ctx.k = tab.shape[0]
+        return tab.new_full((idx.shape[0], tab.shape[1]), 0.5)
+
+
+class _NoAdjRows(LookupRows):
+    """``_ABLATE_BSIG_ADJ``: the row lookup with a zero table gradient."""
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.new_zeros((ctx.k, ct.shape[1])), None
 
 
 def _rows(table, idx):
     """Albedo rows ``table[clip(idx)]`` [N, C] under autograd (the JAX
     package's ``_rows``): the row-lookup kernel on the card."""
-    return LookupRows.apply(table, idx.to(I32).contiguous())
+    fn = _ConstRows if _ABLATE_ALB_FETCH else LookupRows
+    return fn.apply(table, idx.to(I32).contiguous())
 
 
 def _bsig_rows(bsig, idx):
     """Per-brick mean sigma ``bsig[clip(idx)]`` [N] under autograd (the JAX
     package's ``_bsig_rows``): the row-lookup kernel on a [K, 1] table."""
-    return LookupRows.apply(bsig[:, None], idx.to(I32).contiguous())[:, 0]
+    fn = _NoAdjRows if _ABLATE_BSIG_ADJ else LookupRows
+    return fn.apply(bsig[:, None], idx.to(I32).contiguous())[:, 0]
 
 
 def _cell_fetch(dens_flat, cell_tab, idx):
@@ -433,8 +480,12 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
     hit = t1 > t0
 
     if span_steps:
-        s0_all, s1_all = spans if spans is not None else _occupied_spans(
-            scene, vox, voy, voz, vdx, vdy, vdz)
+        if _ABLATE_SPANS:
+            s0_all, s1_all = torch.where(hit, t0, BIG), torch.where(hit, t1, -BIG)
+        elif spans is not None:
+            s0_all, s1_all = spans
+        else:
+            s0_all, s1_all = _occupied_spans(scene, vox, voy, voz, vdx, vdy, vdz)
 
     valid = hit.any(dim=0)  # [N]
     gs_f = vols.gridsize.to(F32)[:, None]  # [V, 1]
@@ -508,9 +559,7 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
     if not span_steps:
         # per-pair scan: each pair marches its own [t0, t1] with n_steps
         # samples, then segments composite front to back by entry t
-        trans = torch.ones((v_eff, n), dtype=F32, device=dev)
-        cr, cg, cbl = (torch.zeros((v_eff, n), dtype=F32, device=dev) for _ in range(3))
-        for ki in range(n_steps):
+        def step(ki, trans, cr, cg, cbl):
             t_mid = t0p + (ki + 0.5) * dt
             lx = (vox + t_mid * vdx - bx) * gs_f
             ly = (voy + t_mid * vdy - by) * gs_f
@@ -518,15 +567,23 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
             ix, iy, iz = (_clip_cell(c, gs_i - 1) for c in (lx, ly, lz))
             inside = in_grid(lx, ly, lz, gs_f)
             flat = (ix * g + iy) * g + iz + vbase
-            cells = _CellFetch.apply(dens_flat, cell_tab, flat.reshape(-1))
+            cells = _cell_fetch(dens_flat, cell_tab, flat.reshape(-1))
             s = torch.where(inside, cells[:, 0].reshape(v_eff, n), 0.0)
-            alb = LookupRows.apply(alb_tab, cells[:, 1].to(I32))
+            alb = _rows(alb_tab, cells[:, 1])
             alpha = 1.0 - torch.exp(-s * dt)
             wgt = trans * alpha
-            cr = cr + wgt * alb[:, 0].reshape(v_eff, n)
-            cg = cg + wgt * alb[:, 1].reshape(v_eff, n)
-            cbl = cbl + wgt * alb[:, 2].reshape(v_eff, n)
-            trans = trans * (1.0 - alpha)
+            return (trans * (1.0 - alpha), cr + wgt * alb[:, 0].reshape(v_eff, n),
+                    cg + wgt * alb[:, 1].reshape(v_eff, n),
+                    cbl + wgt * alb[:, 2].reshape(v_eff, n))
+
+        carry = (torch.ones((v_eff, n), dtype=F32, device=dev),
+                 *(torch.zeros((v_eff, n), dtype=F32, device=dev) for _ in range(3)))
+        for ki in range(n_steps):
+            if _REMAT:
+                carry = torch.utils.checkpoint.checkpoint(step, ki, *carry, use_reentrant=False)
+            else:
+                carry = step(ki, *carry)
+        trans, cr, cg, cbl = carry
         # prefix transmittance of pair vi: the product over pairs entered
         # strictly earlier (index order on ties)
         order_t = t0p + torch.where(hit, 0.0, 1e30)
@@ -553,7 +610,7 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
     # transmittance-bounded upper clamp: past the hard first hit + margin
     # the prefix transmittance is <= exp(-13.8) for the current minimum
     # occupied density, so the core stops there
-    if clamp:
+    if clamp and not _ABLATE_CLAMP:
         occ_cells = vols.grids.reshape(-1) != MAT_NONE
         sig_min = torch.where(occ_cells, dens_flat.detach(), float("inf")).amin()
         margin = 13.8 / torch.clamp(sig_min, min=1e-6) + 1e-3
@@ -620,9 +677,9 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
             f = (ix * g + iy) * g + iz + vbase[j]
             flat = torch.where(inside & ~inside_any, f, flat)
             inside_any = inside_any | inside
-        cells = _CellFetch.apply(dens_flat, cell_tab, flat.reshape(-1))
+        cells = _cell_fetch(dens_flat, cell_tab, flat.reshape(-1))
         s = torch.where(inside_any, cells[:, 0].reshape(ksteps, n), 0.0)
-        alb = LookupRows.apply(alb_tab, cells[:, 1].to(I32))  # [C * N, 3]
+        alb = _rows(alb_tab, cells[:, 1])  # [C * N, 3]
         ar, ag, ab = (torch.where(inside_any, alb[:, c].reshape(ksteps, n), 0.0)
                       for c in range(3))
         return _seg_composite(carry, s * dtc, ar, ag, ab)
@@ -636,7 +693,7 @@ def _march_color(params: DiffParams, scene: Scene, o, d, n_steps: int,
         ibx, iby, ibz = (_clip_cell(c * 0.125, ms_i - 1) for c in (lx, ly, lz))
         inside = in_grid(lx, ly, lz, gs_f[j])
         flat_b = vol_ids[j] * m3 + (ibx * msp + iby) * msp + ibz
-        sb = LookupRows.apply(bsig[:, None], flat_b.expand(span_steps, n).reshape(-1))
+        sb = _bsig_rows(bsig, flat_b.expand(span_steps, n).reshape(-1))
         sb = torch.where(inside, sb.reshape(span_steps, n), 0.0)
         return _seg_composite(carry, sb * dtp, alb_none[0], alb_none[1], alb_none[2])
 

@@ -79,7 +79,7 @@ def build() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "vt_traverse": [_I] + [_P] * 10 + [_I] * 5 + [_P, _P],
+    "vt_traverse": [_I, _I] + [_P] * 10 + [_I] * 5 + [_P, _P],
     "vt_exit_march": [_P] * 10 + [_I] * 5 + [_P, _P],
     "vt_launch_floor": [_I, _P],
     "vt_lookup_init": [_I],

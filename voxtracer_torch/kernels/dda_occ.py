@@ -306,6 +306,45 @@ def traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
     )
 
 
+def walk_trips(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit, ray_active,
+               vol_enabled, occ, bricksize):
+    """Each ray's outer trips through the nearest-hit kernel's walk ([N]
+    int32), counted as csrc/traverse.cu walks: the volumes in index order,
+    each walked alone (``_core`` on one pair; its "rows" are the trips) by
+    the rays that enter it no later than their best hit so far and
+    t_limit, up to just above that best hit.  An inactive ray counts 0.
+    The lockstep walk of ``traverse_occ`` prunes pairs by a best hit that
+    other volumes find in the same trip, so its counts are not the
+    kernel's."""
+    v, n, dev = gridsize.shape[0], o.shape[0], o.device
+    g3 = grids_flat.shape[0] // v
+    t0 = entry_t(inv, cube_min, o, d)  # [V, N]
+    trips = torch.zeros(n, dtype=torch.int64, device=dev)
+    best_hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    inf = torch.full_like(best_t, float("inf"))
+    for i in range(v):
+        go = ray_active & vol_enabled[i] & (t0[i] < 1e33) \
+            & (t0[i] <= torch.minimum(t_limit, best_t))
+        sub = go.nonzero()[:, 0]
+        if sub.numel() == 0:
+            continue
+        # the walk's limit sits just above the best hit so far, so a later
+        # volume's exact tie is walked to and loses the tie-break
+        limit = torch.minimum(t_limit, torch.nextafter(best_t, inf))[sub]
+        tally = {}
+        r = traverse_occ(grids_flat[i * g3:(i + 1) * g3], gridsize[i:i + 1], inv[i:i + 1],
+                         fwd[i:i + 1], cube_min[i:i + 1], o[sub], d[sub], limit,
+                         torch.ones(sub.shape[0], dtype=torch.bool, device=dev),
+                         torch.ones(1, dtype=torch.bool, device=dev), occ[:, i:i + 1],
+                         bricksize[i:i + 1], mode="nearest", ray_tally=tally)
+        trips[sub] += tally["rows"]
+        better = r["hit"] & (~best_hit[sub] | (r["t"] < best_t[sub]))
+        best_t[sub] = torch.where(better, r["t"], best_t[sub])
+        best_hit[sub] |= better
+    return trips.to(torch.int32)
+
+
 def entry_t(inv, cube_min, o, d):
     """Per-pair cube entry t [V, N] (BIG on a miss, 0 when inside)."""
     r = object_rays(inv, o, d)

@@ -6,7 +6,13 @@
 same arguments and return the same dicts as the plain version,
 ``dda_occ.traverse_occ``.  A CUDA tensor goes through the kernel; a CPU
 tensor goes through the plain version.  ``launches`` counts kernel
-launches per kernel.
+launches per kernel.  ``traverse``'s nearest mode has two profiling
+variants of K1, as the JAX kernel's ``count_iters`` and ``ablate``:
+``count_iters=True`` adds each ray's trips through the walk (the plain
+version counts them with ``dda_occ.walk_trips``), and
+``ablate=("norm",)`` skips the normal epilogue.  The JAX kernel's other
+stages, "cand" (its candidate list) and "pal" (its palette fetch), have
+no counterpart in K1 and are refused.
 
 The kernels read the scene from tables packed once per volume set
 (``scene_tables``, in the TPU kernel's ``_prep_tables`` layout) and kept
@@ -31,12 +37,15 @@ import torch
 
 from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.dda import BIG
-from voxtracer_torch.kernels.dda_occ import traverse_occ
+from voxtracer_torch.kernels.dda_occ import traverse_occ, walk_trips
 
 VT = 26       # floats per volume in the constants table
 CACHE_SIZE = 16  # volume sets whose tables are kept (a paged scene's 5 pages and itself)
 
-launches = {"traverse_nearest": 0, "traverse_occluded": 0, "exit_march": 0}
+launches = {"traverse_nearest": 0, "traverse_occluded": 0, "exit_march": 0,
+            "traverse_nearest_count": 0, "traverse_nearest_no_normals": 0}
+# K1's variants (csrc/traverse.cu VAR_*): the trip counter, no normals
+VAR_COUNT, VAR_NO_NORMALS = 1, 2
 
 
 def scene_tables(gridsize, inv, fwd, cube_min, occ, bricksize):
@@ -157,39 +166,75 @@ def tables(grids_flat, gridsize, inv, fwd, cube_min, occ, bricksize):
     return tb
 
 
+def variant_of(mode, count_iters=False, ablate=()):
+    """The kernel variant (VAR_* set) of a ``traverse`` call; raises for
+    what the port does not have."""
+    for stage in ablate:
+        if stage in ("cand", "pal"):
+            raise ValueError(
+                f"ablate={stage!r}: the port's nearest-hit kernel has no such stage (it walks "
+                f"the volumes in index order without a candidate list, and reads materials "
+                f"from the grids, with no palette tables)")
+        if stage != "norm":
+            raise ValueError(f"ablate: unknown stage {stage!r}")
+    var = (VAR_COUNT if count_iters else 0) | (VAR_NO_NORMALS if "norm" in ablate else 0)
+    if var == VAR_COUNT | VAR_NO_NORMALS:
+        raise ValueError("count_iters with ablate=('norm',): K1 has the two variants one at a "
+                         "time")
+    if var and mode != "nearest":
+        raise ValueError(f"count_iters and ablate are nearest mode only: the JAX kernel counts "
+                         f"no trips in {mode!r} mode and returns its hit alone")
+    return var
+
+
 def traverse_plain(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
                    ray_active, vol_enabled, occ, bricksize, mode="nearest", tally=None,
-                   ray_tally=None):
+                   ray_tally=None, count_iters=False, ablate=()):
     """The plain version of ``traverse``: dda_occ.traverse_occ, on any
     device, with t_limit None as BIG and vol_enabled None as every volume
-    (``tally`` and ``ray_tally`` as there)."""
+    (``tally`` and ``ray_tally`` as there); count_iters adds the kernel's
+    trips (``dda_occ.walk_trips``), ablate=("norm",) zeroes the normals."""
+    var = variant_of(mode, count_iters, ablate)
     dev = o.device
     if t_limit is None:
         t_limit = torch.full((o.shape[0],), BIG, dtype=torch.float32, device=dev)
     if vol_enabled is None:
         vol_enabled = torch.ones(gridsize.shape[0], dtype=torch.bool, device=dev)
-    return traverse_occ(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit, ray_active,
-                        vol_enabled, occ, bricksize, mode=mode, tally=tally, ray_tally=ray_tally)
+    args = (grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit, ray_active, vol_enabled,
+            occ, bricksize)
+    out = traverse_occ(*args, mode=mode, tally=tally, ray_tally=ray_tally)
+    if var & VAR_NO_NORMALS:
+        out.update({c: torch.zeros_like(out[c]) for c in ("nx", "ny", "nz")})
+    if var & VAR_COUNT:
+        out["iters"] = walk_trips(*args)
+    return out
 
 
 def traverse(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
-             ray_active, vol_enabled, occ, bricksize, mode="nearest"):
+             ray_active, vol_enabled, occ, bricksize, mode="nearest", count_iters=False,
+             ablate=()):
     """Nearest hit (K1) or any hit before t_limit (K2) over all volumes.
 
     o, d: [N, 3] f32; t_limit [N] f32 or None (no limit: BIG); ray_active
     [N] bool; vol_enabled [V] bool or None (every volume).  Returns
     dict(hit, t, cell, vol, nx, ny, nz) for "nearest", dict(hit) for
-    "occluded"."""
+    "occluded".  Nearest mode only, each a variant of K1: count_iters adds
+    ``iters`` [N] int32, each ray's outer trips through the walk summed over
+    the volumes it walks (0 for an inactive ray); ablate=("norm",) skips
+    the normal epilogue and returns zero normals.  hit, t, vol and cell are
+    the same with either."""
     if mode == "nearest":
         code = 0
     elif mode == "occluded":
         code = 1
     else:
         raise ValueError(f"mode {mode!r}")
+    var = variant_of(mode, count_iters, ablate)
     if not o.is_cuda:
         if o.is_cpu:
             return traverse_plain(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
-                                  ray_active, vol_enabled, occ, bricksize, mode=mode)
+                                  ray_active, vol_enabled, occ, bricksize, mode=mode,
+                                  count_iters=count_iters, ablate=ablate)
         raise ValueError(f"no traversal for device {o.device}")
     index = o.get_device()
     tb = tables(grids_flat, gridsize, inv, fwd, cube_min, occ, bricksize)
@@ -205,26 +250,32 @@ def traverse(grids_flat, gridsize, inv, fwd, cube_min, o, d, t_limit,
     if vol_enabled is not None:
         _check("vol_enabled", vol_enabled, torch.bool, torch.Size((tb.v,)), index)
     if code == 0:
-        # one allocation: t, vol, cell, nx, ny, nz, then the hit bytes
-        buf = torch.empty(6 * n + -(-n // 4), dtype=torch.float32, device=o.device)
-        t, vol, cell, nx, ny, nz, hb = buf.split_with_sizes((n, n, n, n, n, n, -(-n // 4)))
+        # one allocation: t, vol, cell, nx, ny, nz (the trips), then the hit bytes
+        fields = 7 if var & VAR_COUNT else 6
+        buf = torch.empty(fields * n + -(-n // 4), dtype=torch.float32, device=o.device)
+        t, vol, cell, nx, ny, nz, *iters, hb = buf.split_with_sizes((n,) * fields
+                                                                    + (-(-n // 4),))
         hit = hb.view(torch.bool)
         if n % 4:
             hit = hit[:n]
     else:
         buf = hit = torch.empty(n, dtype=torch.bool, device=o.device)
     build.check(build.lib().vt_traverse(
-        code, o.data_ptr(), d.data_ptr(),
+        code, var, o.data_ptr(), d.data_ptr(),
         None if t_limit is None else t_limit.data_ptr(), ray_active.data_ptr(),
         None if vol_enabled is None else vol_enabled.data_ptr(), *tb.ptrs, n, tb.v, tb.side,
         tb.mside, tb.words, buf.data_ptr(),
         # the current stream as an int, without building a Stream object
         torch._C._cuda_getCurrentRawStream(index)), f"traverse({mode})")
-    launches["traverse_nearest" if code == 0 else "traverse_occluded"] += 1
     if code == 1:
+        launches["traverse_occluded"] += 1
         return dict(hit=hit)
-    return dict(hit=hit, t=t, cell=cell.view(torch.int32), vol=vol.view(torch.int32),
-                nx=nx, ny=ny, nz=nz)
+    launches[("traverse_nearest", "traverse_nearest_count", "traverse_nearest_no_normals")[var]] += 1
+    out = dict(hit=hit, t=t, cell=cell.view(torch.int32), vol=vol.view(torch.int32),
+               nx=nx, ny=ny, nz=nz)
+    if iters:
+        out["iters"] = iters[0].view(torch.int32)
+    return out
 
 
 def exit_march_plain(grids_flat, gridsize, inv, fwd, cube_min, o, d,
