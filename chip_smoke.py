@@ -20,7 +20,9 @@ drives the port's two halves of the main path through its entry points:
   the media scene (render/reproject.render_reproject_frame);
 * the kernel probes (voxtracer_torch.probe.main): the lane gather, the
   2048-entry gather and the DDA-shaped ALU loop, each held against its
-  plain version at B = 32, 256 and 1024 first;
+  plain version at B = 32, 256 and 1024 first, the lane gather and the
+  ALU loop in cycles an iteration at each B beside nvidia-smi's SM clock,
+  and their ptxas registers;
 * a scene past 64 volumes: the 1080p 4-bounce frame of the city_xl-layout
   stand-in (111 volumes of 64^3, 5 pages) with the bounce reorder on
   "auto", in one K1/K2 launch over all volumes as the port runs it on the
@@ -145,11 +147,12 @@ launch floor); of a ray that does not march K3 returns zeros where the
 plain version returns its entry t, which no caller reads, so K3 is held
 to the plain version on the marching rays (and in in_vol and cell
 everywhere).  With ``--baseline DIR`` (an unpacked checkout of an
-earlier commit) the script also times that checkout's K1, K2, K3, K4 and
-K4-bwd on the same inputs, in turns with this one's (baseline, this,
-this, baseline), prints its ptxas report, and times the 1080p frame with
-its K1/K2 swapped in, in turns. Step times are host clocks around
-synchronised runs, 1 warm-up and 3 reps.
+earlier commit) the script also times that checkout's K1, K2, K3, K4,
+K4-bwd, P1 and P4 (at B = 32, 256 and 1024) on the same inputs, in turns
+with this one's (baseline, this, this, baseline), prints its ptxas
+report, and times the 1080p frame with its K1/K2 swapped in, in turns.
+Step times are host clocks around synchronised runs, 1 warm-up and 3
+reps.
 
 Phases print their results as they go.  Before the last line come one
 JSON line with the per-kernel results and one line with the card's name
@@ -440,6 +443,11 @@ def lookup_of(root):
     return _module_of(root, "voxtracer_torch.kernels.lookup")
 
 
+def probes_of(root):
+    """The ``voxtracer_torch.kernels.probes`` module of the checkout at `root`."""
+    return _module_of(root, "voxtracer_torch.kernels.probes")
+
+
 def traverse_of(root):
     """The ``voxtracer_torch.kernels.traverse`` module of the checkout at
     `root`; its ``traverse`` takes explicit t_limit and vol_enabled tensors."""
@@ -464,6 +472,18 @@ def turns_text(turns):
             + ", ".join(f"{ms:.4f} ms ({us:.1f} us host)" for ms, us in seq))
 
 
+def _mangled_names(mangled):
+    """The length-prefixed names at the head of an Itanium-mangled symbol
+    ("_ZN41_GLOBAL__N__..18lane_gather_kernelILb1E..." -> ["_GLOBAL__N__..",
+    "lane_gather_kernel"])."""
+    names, i = [], len(re.match(r"_ZN?", mangled).group(0)) if mangled.startswith("_Z") else 0
+    while (m := re.match(r"\d+", mangled[i:])):
+        n, i = int(m.group(0)), i + m.end()
+        names.append(mangled[i:i + n])
+        i += n
+    return names
+
+
 def ptxas_functions(text):
     """ptxas' -v report (the build's .log) per compiled function -> a list
     of dicts (name, stack, spill_stores, spill_loads, registers); the
@@ -481,8 +501,11 @@ def ptxas_functions(text):
                 name = (f"traverse_kernel<{('nearest', 'occluded')[int(t.group(1))]}"
                         + (f", {' | '.join(flags)}" if flags else "") + ">")
             else:
-                k = re.search(r"([a-z][a-z0-9_]*kernel[a-z0-9_]*)", mangled)
-                name = k.group(1) if k else mangled
+                name = next((n for n in reversed(_mangled_names(mangled)) if "kernel" in n),
+                            mangled)
+                form = re.search(r"(?:lane_gather|alu_loop)_kernelILb(\d)E", mangled)
+                if form:  # the two forms of P1's and P4's step
+                    name += ("<few ops>", "<short chain>")[int(form.group(1))]
             cur = dict(name=name)
             out.append(cur)
             continue
@@ -2382,8 +2405,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="an unpacked checkout of another commit: time its K1, K2, K4 and "
-                         "K4-bwd beside this one's, in turns, on the calls the path makes")
+                    help="an unpacked checkout of another commit: time its K1, K2, K4, "
+                         "K4-bwd, P1 and P4 beside this one's, in turns, on the calls the "
+                         "path makes")
     baseline = ap.parse_args(argv).baseline
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3086,10 +3110,17 @@ def main(argv=None) -> int:
     # ---- 15. the kernel probes: each probe kernel against its plain
     # version at B = 32, 256 and 1024 over random int32 tables and indices
     # (near and far floats for P4) at the entry point's loop counts, timed
-    # at B = 256; then the entry point voxtracer_torch.probe, counted
+    # at B = 256 and, for the few-ops forms of P1 and P4, at 1024 (with
+    # --baseline: P1 and P4 at each B in turns with the other checkout's, at
+    # k and 2k iterations for cycles an iteration); then the entry point
+    # voxtracer_torch.probe, counted, with P1 and P4 in cycles an iteration
+    # at each B
     prng = np.random.default_rng(15)
     probe_src = dict(P1="scripts/probe_pallas.py:78", P3="scripts/probe_pallas.py:118",
                      P4="scripts/probe_pallas.py:162")
+    base_probes = probes_of(baseline) if baseline else None
+    max_clock = float(probe.smi("clocks.max.sm").split()[0]) * 1e6
+    reported = set()
 
     def wide(shape):
         return torch.from_numpy(prng.integers(-2 ** 31, 2 ** 31 - 1, shape)
@@ -3103,19 +3134,45 @@ def main(argv=None) -> int:
         for pid, args in pargs.items():
             pname = probe.KERNELS[pid]
             kern, plain = getattr(probes, pname), getattr(probes, pname + "_plain")
+            kname = pname if pid == "P3" else f"{pname}_{probes.form(pname, b)}"
             it = probe.START_K[pid]
             got, want = kern(*args, it), plain(*args, it)
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"{pname} [B={b}] differs from its plain version")
-            if b != 256:
+            check(torch.equal(got, want), f"{kname} [B={b}] differs from its plain version")
+            turns = None
+            if base_probes is not None and pid != "P3":
+                base_kern = getattr(base_probes, pname)
+                check(torch.equal(base_kern(*args, it), want),
+                      f"baseline {pname} [B={b}] differs from the plain version")
+                kt, turns = in_turns(lambda: kern(*args, it), lambda: base_kern(*args, it))
+                _, turns2 = in_turns(lambda: kern(*args, 2 * it),
+                                     lambda: base_kern(*args, 2 * it))
+                cyc = {w: (statistics.mean(ms for ms, _ in turns2[w])
+                           - statistics.mean(ms for ms, _ in turns[w])) * 1e-3 / it * max_clock
+                       for w in ("this", "baseline")}
+                log(f"[15] {kname} [B={b}], {it} iterations: kernel {kt[0]:.4f} ms "
+                    f"({kt[1]:.1f} us host){turns_text(turns)}; at {2 * it}"
+                    f"{turns_text(turns2)[1:]}; cycles an iteration at "
+                    f"{max_clock / 1e6:.0f} MHz: this {cyc['this']:.2f}, baseline "
+                    f"{cyc['baseline']:.2f} ({smi})")
+            if b == 32 or kname in reported or (b == 1024 and pid == "P3"):
                 continue
-            report(pname, "voxtracer_torch/csrc/probes.cu", probe_src[pid], 0.0,
+            reported.add(kname)
+            report(kname, "voxtracer_torch/csrc/probes.cu", probe_src[pid], 0.0,
                    per_launch(lambda: kern(*args, it)),
                    per_launch(lambda: plain(*args, it), windows=3),
                    bound(nbytes(*args, got), probe.COUNTS[pid][2] * it * got.numel()), None,
-                   phase=15)
+                   phase=15, rows=b)
+            if turns:  # the baseline's mean over its two turns
+                results[-1].update(
+                    baseline_ms=statistics.mean(ms for ms, _ in turns["baseline"]),
+                    baseline_host_us=statistics.mean(us for _, us in turns["baseline"]))
     log(f"[15] lane_gather, chain_gather, alu_loop equal their plain versions at B = 32, "
         f"256, 1024 ({probe.START_K} iterations)")
+    for f in ptx:
+        if f["name"].startswith(("lane_gather_kernel", "alu_loop_kernel")):
+            log(f"[15] ptxas: {f['name']}: {f.get('registers')} registers, {f.get('stack')} "
+                f"bytes stack frame, {f.get('spill_stores')} bytes spill stores")
     reset_counts()
     measured = probe.main()
     torch.cuda.synchronize()
@@ -3126,6 +3183,11 @@ def main(argv=None) -> int:
         check(math.isfinite(r["ns"]) and r["ns"] > 0 and r["bound_ns"] > 0,
               f"probe {r['probe']} [B={r['B']}]: {r['ns']} ns/idx")
     log(f"[15] voxtracer_torch.probe: {len(measured)} probes; launches {probe_counts}")
+    for pid in ("P1", "P4"):
+        log(f"[15] {pid} cycles an iteration: " + "; ".join(
+            f"B = {r['B']}: {r['cycles']:.2f} ({r['ns']:.6f} ns/idx, clocks.sm "
+            f"{r['clocks_sm'][0]} -> {r['clocks_sm'][1]})" for r in measured if r["probe"] == pid)
+            + f" ({smi})")
 
     # ---- 16. past 64 volumes: the city_xl-layout stand-in (110 procedural
     # 64^3 buildings and the floor, 5 pages), one 1080p 4-bounce frame

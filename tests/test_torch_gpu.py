@@ -896,16 +896,29 @@ def _probe_inputs(rng, b, dev):
             "alu_loop": (wide((b, 128)), torch.from_numpy(y.astype(np.float32)).to(dev))}
 
 
-@pytest.mark.parametrize("b", [32, 256, 1024])
-def test_probe_kernels_match_plain(cuda, b):
+@pytest.mark.parametrize("iters", [0, 1, 5, 64, 4099])
+@pytest.mark.parametrize("b", [1, 32, 256, 1024])
+def test_probe_kernels_match_plain(cuda, b, iters):
     """P1, P3 and P4 over random int32 tables and indices (and far and near
-    floats for P4), 64 iterations."""
-    for name, args in _probe_inputs(np.random.default_rng(b), b, cuda).items():
-        before = probes.launches[name]
-        got = getattr(probes, name)(*args, 64)
+    floats for P4): loop counts on both sides of the 4-step unroll, and row
+    counts on both sides of P1's and P4's switch between their two forms of
+    the step (B = 1024 takes the few-ops forms), each counted as its form."""
+    for name, args in _probe_inputs(np.random.default_rng([b, iters]), b, cuda).items():
+        key = name if name == "chain_gather" else f"{name}_{probes.form(name, b)}"
+        before = dict(probes.launches)
+        got = getattr(probes, name)(*args, iters)
         torch.cuda.synchronize()
-        assert probes.launches[name] == before + 1
-        assert torch.equal(got, getattr(probes, name + "_plain")(*args, 64)), name
+        assert probes.launches == dict(before, **{key: before[key] + 1})
+        assert torch.equal(got, getattr(probes, name + "_plain")(*args, iters)), name
+
+
+def test_probe_forms_switch_at_their_warps_a_scheduler(cuda):
+    """P1 takes its short chain up to 5 rows an SM (5 warps a scheduler),
+    P4 up to 2, and the few-ops form past that."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name, warps in (("lane_gather", 5), ("alu_loop", 2)):
+        assert probes.form(name, 1) == probes.form(name, warps * sms) == "short_chain"
+        assert probes.form(name, warps * sms + 1) == "few_ops"
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):

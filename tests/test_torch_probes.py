@@ -19,6 +19,7 @@ import functools
 import importlib.util
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -153,3 +154,134 @@ def test_probe_entry_point_needs_a_card():
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
     assert "ns/idx" not in out.stdout
+
+
+# ---- csrc/probes.cu's loop bodies, transcribed step by step in numpy and
+# held against the plain versions and the Pallas probes
+
+U32 = np.uint32
+S, HALF, BIG = np.float32(1.0000001), np.float32(0.5), np.float32(1e9)
+SKEW, OFFSET_MASK = 32, U32(0x3FFF)
+
+
+def _cu_threshold():
+    """P4's thresholds in csrc/probes.cu (selp.f32 thr, <under !m>, <under m>)."""
+    src = (ROOT / "voxtracer_torch" / "csrc" / "probes.cu").read_text()
+    m = re.search(r"selp\.f32 thr, 0f([0-9A-F]{8}), 0f([0-9A-F]{8}), nm;", src)
+    big, under_m = (np.array([int(h, 16)], np.uint32).view(np.float32)[0] for h in m.groups())
+    return big, under_m
+
+
+def _step1(y):
+    """y * 1.0000001f + 0.5f, two roundings as the kernel's FMUL and FADD."""
+    return (y * S) + HALF
+
+
+def lane_gather_skewed(tab, idx, iters, short_chain):
+    """P1 as the kernel computes it: the row staged 32 times lane-skewed
+    (entry e for lane l at word e * 32 + l), the index carried as the byte
+    offset index * 128 + lane * 4, and one of the two forms of the step."""
+    words = np.repeat(tab.view(U32), SKEW, axis=1)
+    rows = np.arange(tab.shape[0])[:, None]
+    off = ((idx.view(U32) & U32(127)) << U32(7)) | ((np.arange(128, dtype=U32) % SKEW) << U32(2))
+    q, acc = off.copy(), np.zeros_like(off)
+    for _ in range(iters):
+        v = words[rows, off >> U32(2)]
+        if short_chain:  # q = off + acc * 128, formed while the load is in flight
+            off = ((v << U32(7)) + q) & OFFSET_MASK
+            acc = acc + v
+            q = off + (acc << U32(7))
+        else:
+            acc = acc + v
+            off = (off + (acc << U32(7))) & OFFSET_MASK
+    return acc.view(np.int32)
+
+
+def alu_loop_steps(a, b, iters, short_chain):
+    """P4 as the kernel computes it: m from bit 4 of x, x + 1 + bit 4, y's
+    FMUL, FADD under m, then m2 (the short chain: read from y before the
+    step against the threshold m selects; few ops: y1 < 1e9 after the add),
+    the xor under m2 and y's FMUL by 0.5 under !m2."""
+    big, under_m = _cu_threshold()
+    x, y = a.view(U32).copy(), b.copy()
+    with np.errstate(over="ignore", invalid="ignore"):
+        for _ in range(iters):
+            nm = (x & U32(16)) != 0
+            if short_chain:
+                m2 = y < np.where(nm, big, under_m)
+            xm = np.where(nm, x + U32(2), x + U32(1))
+            y = np.where(nm, y, _step1(y))
+            if not short_chain:
+                m2 = y < BIG
+            x = np.where(m2, xm ^ (xm.view(np.int32) >> 3).view(U32), xm)
+            y = np.where(m2, y, y * HALF)
+        # __float2int_rz: toward zero, saturating at the int32 range
+        yi = np.clip(y.astype(np.float64), -2.0 ** 31, 2.0 ** 31 - 1).astype(np.int64)
+    return (x.astype(np.int64) + yi).astype(U32).view(np.int32)
+
+
+def test_p4_threshold_is_where_the_step_reaches_1e9():
+    """y * 1.0000001f + 0.5f < 1e9 exactly when y < the kernel's threshold:
+    the step is monotone in y, the threshold is the least float it takes to
+    1e9, and a sweep of the floats around it and of random bit patterns
+    agrees."""
+    big, under_m = _cu_threshold()
+    assert big == BIG
+    below = np.nextafter(under_m, np.float32(-np.inf))
+    assert _step1(below) < BIG <= _step1(under_m)
+    lo, hi = np.array([9.9e8, 1.01e9], np.float32).view(U32)
+    near = np.arange(lo, hi, dtype=U32).view(np.float32)
+    bits = np.random.default_rng(7).integers(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(U32)
+    extremes = np.array([np.inf, -np.inf, np.finfo(np.float32).max,
+                         -np.finfo(np.float32).max, 0.0, -0.0], np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for y in (near, bits.view(np.float32), extremes):
+            np.testing.assert_array_equal(y < under_m, _step1(y) < BIG)
+
+
+def _p4_edge_inputs(rng):
+    """P4's inputs with the floats that cross 1e9 and the threshold put in."""
+    a, b = _inputs("P4", rng)
+    big, under_m = _cu_threshold()
+    edges = [under_m, np.nextafter(under_m, np.float32(0)), big, np.nextafter(big, np.float32(0)),
+             np.nextafter(big, np.float32(3e9)), 2e9, -2e9, 1.9999999e9, 5e8, -0.0]
+    b[0, :len(edges)] = edges
+    return a, b
+
+
+@pytest.mark.parametrize("iters", [0, 1, 3, 5, 17])
+@pytest.mark.parametrize("form", ["P1 short chain", "P1 few ops", "P4 short chain",
+                                  "P4 few ops"])
+def test_kernel_steps_match_plain_and_pallas(pallas_probes, form, iters):
+    """Each loop body of csrc/probes.cu, transcribed step by step, against
+    the plain version and the Pallas probe (interpret mode; P4 op by op),
+    over wide int32 inputs and P4's near and far floats, at loop counts that
+    cover the 4-step unroll and its remainder."""
+    rng = np.random.default_rng([iters, len(form)])
+    if form.startswith("P4"):
+        args = _p4_edge_inputs(rng)
+        got = alu_loop_steps(*args, iters, short_chain=form == "P4 short chain")
+        plain = probes.alu_loop_plain(*map(torch.from_numpy, args), iters)
+        with jax.disable_jit():
+            want = np.asarray(pallas_probes["P4"](jnp.int32(iters), *map(jnp.asarray, args)))
+    else:
+        args = _inputs("P1", rng)
+        got = lane_gather_skewed(*args, iters, short_chain=form == "P1 short chain")
+        plain = probes.lane_gather_plain(*map(torch.from_numpy, args), iters)
+        want = np.asarray(pallas_probes["P1"](jnp.int32(iters), *map(jnp.asarray, args)))
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_p4_steps_match_plain_at_the_float_extremes():
+    """Infinities, the largest floats and signed zeros (where y * 1.0000001f
+    overflows) through the P4 transcription and the plain version."""
+    rng = np.random.default_rng(11)
+    a, b = _inputs("P4", rng)
+    fmax = np.finfo(np.float32).max
+    b[:, :8] = np.array([np.inf, -np.inf, fmax, -fmax, np.nextafter(fmax, np.float32(0)),
+                         0.0, -0.0, 1e-45], np.float32)
+    for iters in (1, 5, 200):
+        want = probes.alu_loop_plain(*map(torch.from_numpy, (a, b)), iters).numpy()
+        for short_chain in (True, False):
+            np.testing.assert_array_equal(alu_loop_steps(a, b, iters, short_chain), want)

@@ -85,6 +85,7 @@ _SIGNATURES = {
     "vt_lookup_init": [_I],
     "vt_lookup_rows": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _P],
     "vt_lookup_rows_bwd": [_P, ctypes.c_longlong, _I, _P, _I, _P, _P, _I, _P],
+    "vt_probe_short_chain": [_I, ctypes.c_longlong],
     "vt_lane_gather": [_P, _P, _I, _I, _P, _P],
     "vt_chain_gather": [_P, _P, _I, _I, _P, _P],
     "vt_alu_loop": [_P, _P, ctypes.c_longlong, _I, _P, _P],

@@ -8,7 +8,9 @@ through the ``*_plain`` version, the script's loop body line for line in
 int32 / f32 torch ops.  ``row_gather`` is the script's X1: the same kind
 of iterated gather as PyTorch indexing over a [T, W] table, the yardstick
 the gathers are read against; it is no kernel and has no wrapper.
-``launches`` counts kernel launches per kernel.
+``launches`` counts kernel launches per kernel: P1 and P4 each have two,
+one for each form of the step (``short_chain`` and ``few_ops``), and the
+launch picks one by the rows it is given (``form``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from voxtracer_torch.kernels import build
 LANES = 128           # entries of one lane-table row
 CHAIN_ENTRIES = 2048  # entries of the chain table: 16 blocks of 128
 
-launches = {"lane_gather": 0, "chain_gather": 0, "alu_loop": 0}
+launches = {"lane_gather_short_chain": 0, "lane_gather_few_ops": 0, "chain_gather": 0,
+            "alu_loop_short_chain": 0, "alu_loop_few_ops": 0}
+_PROBE = {"lane_gather": 1, "alu_loop": 4}  # vt_probe_short_chain's probe numbers
 
 _SCALE = torch.tensor(1.0000001, dtype=torch.float32)  # rounds to 1 + 2^-23
 _HALF = torch.tensor(0.5, dtype=torch.float32)
@@ -101,6 +105,15 @@ def _rows(idx):
     return idx.shape[0]
 
 
+def form(name, rows):
+    """The form of the step that kernel `name` ("lane_gather" or
+    "alu_loop") takes for `rows` rows of 128 on the current CUDA device:
+    "short_chain" or "few_ops"."""
+    got = build.lib().vt_probe_short_chain(_PROBE[name], rows)
+    build.check(-got if got < 0 else 0, f"{name} form")
+    return "short_chain" if got else "few_ops"
+
+
 def lane_gather(tab, idx, iters):
     """P1: ``iters`` rounds of ``idx = (idx + acc) & 127; acc += tab[b, idx]``
     over tab, idx [B, 128] i32 -> acc [B, 128] i32."""
@@ -111,10 +124,11 @@ def lane_gather(tab, idx, iters):
     _require("tab", tab, torch.int32, (b, LANES), dev)
     _require("idx", idx, torch.int32, (b, LANES), dev)
     out = torch.empty_like(idx)
+    key = f"lane_gather_{form('lane_gather', b)}"
     status = build.lib().vt_lane_gather(tab.data_ptr(), idx.data_ptr(), b, _iters(iters),
                                         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "lane_gather")
-    launches["lane_gather"] += 1
+    launches[key] += 1
     return out
 
 
@@ -145,8 +159,9 @@ def alu_loop(a, b, iters):
     _require("a", a, torch.int32, (rows, LANES), dev)
     _require("b", b, torch.float32, (rows, LANES), dev)
     out = torch.empty_like(a)
+    key = f"alu_loop_{form('alu_loop', rows)}"
     status = build.lib().vt_alu_loop(a.data_ptr(), b.data_ptr(), a.numel(), _iters(iters),
                                      out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "alu_loop")
-    launches["alu_loop"] += 1
+    launches[key] += 1
     return out

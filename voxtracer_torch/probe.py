@@ -13,9 +13,9 @@ power limit, and then:
   X1  PyTorch's row gather from a [2048, 16] table over n = 2^20 indices,
       the yardstick the gathers are read against;
   P1  lane gather from a 128-entry row (kernels.probes.lane_gather),
-      B = 256, 32 and 1024;
+      B = 256, 32 and 1024, each line naming the form of the step taken;
   P3  gather from a 2048-entry table (chain_gather), B = 256;
-  P4  DDA-shaped int/f32 loop (alu_loop), B = 256.
+  P4  DDA-shaped int/f32 loop (alu_loop), B = 256, 32 and 1024, the same.
 
 The script's P2 (sublane gather, form 1) has no pallas_call, so it has no
 counterpart here.
@@ -29,8 +29,11 @@ nvidia-smi's maximum SM clock: the larger of the shared-memory (or L1)
 loads over 32 four-byte loads per clock per SM, the int32 operations over
 64 int32 lanes per SM, and all operations over the 128 threads per clock
 per SM that the four warp schedulers dispatch; and the share of it
-reached.  Without a CUDA device it raises: a measurement does not fall
-back to the CPU.
+reached.  Beside each cost stand the cycles one iteration of the loop
+takes over the whole launch (ns per index times the indices, at the
+maximum SM clock) and nvidia-smi's SM clock read before and after the
+measurement.  Without a CUDA device it raises: a measurement does not
+fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -48,9 +51,10 @@ LOADS_PER_CLOCK = 32   # four-byte shared-memory / L1 loads per clock per SM
 INT32_LANES = 64       # int32 lanes per SM
 DISPATCH_LANES = 128   # 4 warp schedulers x 32 threads per clock per SM
 
-# per index and iteration, counted from each loop body:
-# (table loads, int32 operations, all operations)
-COUNTS = {"X1": (2, 4, 6), "P1": (1, 3, 4), "P3": (1, 3, 4), "P4": (0, 5, 13)}
+# per index and iteration, counted from each loop body: (table loads, int32
+# operations, all operations).  P1 and P4: the instructions of the fewer-op
+# form of the step in csrc/probes.cu's SASS (P4: 9, of them 5 integer)
+COUNTS = {"X1": (2, 4, 6), "P1": (1, 3, 4), "P3": (1, 3, 4), "P4": (0, 5, 9)}
 # the script's loop counts, where k starts
 START_K = {"X1": 8, "P1": 4096, "P3": 512, "P4": 8192}
 # the kernel (kernels.probes) behind each probe
@@ -112,7 +116,8 @@ def bound_ns(probe, sms, clock_hz):
 
 def main():
     """Run the probes on CUDA device 0, print one line each and return
-    them as dicts (probe, B, ns, k, t1_ms, t2_ms, bound_ns, bound_by)."""
+    them as dicts (probe, B, ns, k, t1_ms, t2_ms, bound_ns, bound_by,
+    cycles, clocks_sm)."""
     if not torch.cuda.is_available():
         raise RuntimeError("voxtracer_torch.probe: no CUDA device; the probes measure the card")
     dev = torch.device("cuda", 0)
@@ -143,12 +148,17 @@ def main():
     results = []
 
     def run(probe, label, b, fn, work):
+        before = smi("clocks.sm")
         ns, k, t1, t2 = diff_cost(fn, START_K[probe], work)
+        clocks = (before, smi("clocks.sm"))
         bound, by = bound_ns(probe, sms, clock)
+        cycles = ns * 1e-9 * work * clock
         results.append(dict(probe=probe, B=b, ns=ns, k=k, t1_ms=t1, t2_ms=t2,
-                            bound_ns=bound, bound_by=by))
+                            bound_ns=bound, bound_by=by, cycles=cycles, clocks_sm=clocks))
         log(f"{label}: {ns:.5f} ns/idx (k={k}: t(k) {t1:.3f} ms, t(2k) {t2:.3f} ms); "
-            f"bound {bound:.6f} ns/idx ({by}), {bound / ns:.2%} of it reached ({card})")
+            f"bound {bound:.6f} ns/idx ({by}), {bound / ns:.2%} of it reached; "
+            f"{cycles:.2f} cycles an iteration at {clock / 1e6:.0f} MHz (clocks.sm "
+            f"{clocks[0]} -> {clocks[1]}) ({card})")
 
     n, t, w = 1 << 20, 2048, 16
     xtab, xidx = i32(rng.integers(0, 2 ** 20, (t, w))), i32(rng.integers(0, t, n))
@@ -157,17 +167,18 @@ def main():
     for b in (256, 32, 1024):
         tab = i32(np.broadcast_to(np.arange(128), (b, 128)))
         idx = i32(rng.integers(0, 128, (b, 128)))
-        run("P1", f"P1 lane gather 128-entry rows [B={b}]", b,
+        run("P1", f"P1 lane gather 128-entry rows [B={b}, {probes.form('lane_gather', b)}]", b,
             lambda k: probes.lane_gather(tab, idx, k), b * 128)
     b = 256
     ctab = i32(np.arange(2048).reshape(16, 128))
     cidx = i32(rng.integers(0, 2048, (b, 128)))
     run("P3", f"P3 gather 2048-entry table [B={b}]", b,
         lambda k: probes.chain_gather(ctab, cidx, k), b * 128)
-    a = torch.ones((b, 128), dtype=torch.int32, device=dev)
-    f = torch.ones((b, 128), dtype=torch.float32, device=dev)
-    run("P4", f"P4 DDA-shaped loop, 13 ops/iter [B={b}]", b,
-        lambda k: probes.alu_loop(a, f, k), b * 128)
+    for b in (256, 32, 1024):
+        a = torch.ones((b, 128), dtype=torch.int32, device=dev)
+        f = torch.ones((b, 128), dtype=torch.float32, device=dev)
+        run("P4", f"P4 DDA-shaped loop [B={b}, {probes.form('alu_loop', b)}]", b,
+            lambda k: probes.alu_loop(a, f, k), b * 128)
     return results
 
 
