@@ -504,8 +504,12 @@ def ptxas_functions(text):
                 name = next((n for n in reversed(_mangled_names(mangled)) if "kernel" in n),
                             mangled)
                 form = re.search(r"(?:lane_gather|alu_loop)_kernelILb(\d)E", mangled)
+                chain = re.search(r"chain_gather_kernelILi(\d+)ELb(\d)E", mangled)
                 if form:  # the two forms of P1's and P4's step
                     name += ("<few ops>", "<short chain>")[int(form.group(1))]
+                elif chain:  # P3's copies of its table and form of its step
+                    name += (f"<{chain.group(1)} copies, "
+                             f"{('few ops', 'short chain')[int(chain.group(2))]}>")
             cur = dict(name=name)
             out.append(cur)
             continue
@@ -3110,17 +3114,16 @@ def main(argv=None) -> int:
     # ---- 15. the kernel probes: each probe kernel against its plain
     # version at B = 32, 256 and 1024 over random int32 tables and indices
     # (near and far floats for P4) at the entry point's loop counts, timed
-    # at B = 256 and, for the few-ops forms of P1 and P4, at 1024 (with
-    # --baseline: P1 and P4 at each B in turns with the other checkout's, at
-    # k and 2k iterations for cycles an iteration); then the entry point
-    # voxtracer_torch.probe, counted, with P1 and P4 in cycles an iteration
+    # at B = 256 and 1024 (P1 and P4 take their few-ops forms there; with
+    # --baseline: each probe at each B in turns with the other checkout's,
+    # at k and 2k iterations for cycles an iteration); then the entry point
+    # voxtracer_torch.probe, counted, with each probe in cycles an iteration
     # at each B
     prng = np.random.default_rng(15)
     probe_src = dict(P1="scripts/probe_pallas.py:78", P3="scripts/probe_pallas.py:118",
                      P4="scripts/probe_pallas.py:162")
     base_probes = probes_of(baseline) if baseline else None
     max_clock = float(probe.smi("clocks.max.sm").split()[0]) * 1e6
-    reported = set()
 
     def wide(shape):
         return torch.from_numpy(prng.integers(-2 ** 31, 2 ** 31 - 1, shape)
@@ -3140,7 +3143,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"{kname} [B={b}] differs from its plain version")
             turns = None
-            if base_probes is not None and pid != "P3":
+            if base_probes is not None:
                 base_kern = getattr(base_probes, pname)
                 check(torch.equal(base_kern(*args, it), want),
                       f"baseline {pname} [B={b}] differs from the plain version")
@@ -3155,9 +3158,8 @@ def main(argv=None) -> int:
                     f"{turns_text(turns2)[1:]}; cycles an iteration at "
                     f"{max_clock / 1e6:.0f} MHz: this {cyc['this']:.2f}, baseline "
                     f"{cyc['baseline']:.2f} ({smi})")
-            if b == 32 or kname in reported or (b == 1024 and pid == "P3"):
+            if b == 32:
                 continue
-            reported.add(kname)
             report(kname, "voxtracer_torch/csrc/probes.cu", probe_src[pid], 0.0,
                    per_launch(lambda: kern(*args, it)),
                    per_launch(lambda: plain(*args, it), windows=3),
@@ -3170,9 +3172,11 @@ def main(argv=None) -> int:
     log(f"[15] lane_gather, chain_gather, alu_loop equal their plain versions at B = 32, "
         f"256, 1024 ({probe.START_K} iterations)")
     for f in ptx:
-        if f["name"].startswith(("lane_gather_kernel", "alu_loop_kernel")):
+        if f["name"].startswith(("lane_gather_kernel", "chain_gather_kernel", "alu_loop_kernel")):
             log(f"[15] ptxas: {f['name']}: {f.get('registers')} registers, {f.get('stack')} "
                 f"bytes stack frame, {f.get('spill_stores')} bytes spill stores")
+            check(f.get("stack") == 0 and f.get("spill_stores") == 0,
+                  f"ptxas: {f['name']} has a stack frame or spills")
     reset_counts()
     measured = probe.main()
     torch.cuda.synchronize()
@@ -3183,7 +3187,7 @@ def main(argv=None) -> int:
         check(math.isfinite(r["ns"]) and r["ns"] > 0 and r["bound_ns"] > 0,
               f"probe {r['probe']} [B={r['B']}]: {r['ns']} ns/idx")
     log(f"[15] voxtracer_torch.probe: {len(measured)} probes; launches {probe_counts}")
-    for pid in ("P1", "P4"):
+    for pid in ("P1", "P3", "P4"):
         log(f"[15] {pid} cycles an iteration: " + "; ".join(
             f"B = {r['B']}: {r['cycles']:.2f} ({r['ns']:.6f} ns/idx, clocks.sm "
             f"{r['clocks_sm'][0]} -> {r['clocks_sm'][1]})" for r in measured if r["probe"] == pid)

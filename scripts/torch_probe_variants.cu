@@ -1,16 +1,23 @@
-// The P1 and P4 probe steps side by side on Hopper (sm_90a), timed by
+// The P1, P3 and P4 probe steps side by side on Hopper (sm_90a), timed by
 // scripts/torch_probe_variants.py: both forms of each step in
 // voxtracer_torch/csrc/probes.cu (included here), forced at any row count,
-// and two forms weighed in their design that the port does not run.  They
+// and forms weighed in their design that the port does not run.  They
 // compute what probes.cu computes (the script holds each to the plain
 // versions of voxtracer_torch/kernels/probes.py first) and differ only in
-// how a step is laid out.
+// how a step or the table is laid out.
 //
 // P1 (one 128-thread block a row):
 //   0 copy, short chain   one copy of the row (bank conflicts), the index
 //                         carried as a byte offset and the short chain
 //   1 few ops             lane_gather_kernel<false> of probes.cu
 //   2 short chain         lane_gather_kernel<true>
+// P3 (chain_gather_kernel<copies, form> of probes.cu, up to 8 rows a block):
+//   0 one copy            the 8 KB table once (bank conflicts), short chain,
+//                         the port's launch shape
+//   1 few ops             16 lane-class copies, acc += v first (3 ops a step)
+//   2 short chain         16 lane-class copies: the port's P3
+//   3 eight copies        8 lane-class copies (64 KB; ~2.95 words in the
+//                         fullest bank), rows packed for two blocks an SM
 // P4 (128-thread blocks):
 //   0 four candidates     both y candidates, both compares and both halves
 //                         formed from y, m and m2 selecting at the end
@@ -79,6 +86,17 @@ int pv_lane_gather(int variant, const int* tab, const int* idx, int rows, int it
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// tab: [2048] i32; idx, out: [rows, 128] i32.
+int pv_chain_gather(int variant, const int* tab, const int* idx, int rows, int iters, int* out) {
+  switch (variant) {
+    case 0: return chain_gather_launch<1, true>(tab, idx, rows, iters, out, 0, 1);
+    case 1: return chain_gather_launch<CHAIN_COPIES, false>(tab, idx, rows, iters, out, 0, 1);
+    case 2: return chain_gather_launch<CHAIN_COPIES, true>(tab, idx, rows, iters, out, 0, 1);
+    case 3: return chain_gather_launch<8, true>(tab, idx, rows, iters, out, 0, 2);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // a, out: [n] i32; b: [n] f32.

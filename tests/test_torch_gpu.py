@@ -37,7 +37,7 @@ from voxtracer_torch.scene.materials import default_materials
 from voxtracer_torch.scene.presets import _assemble
 from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_MID_DENSITY, SMOKE_PLAYER
 from voxtracer_torch.diff import train, volumetric
-from voxtracer_torch.kernels import lookup, probes, traverse
+from voxtracer_torch.kernels import build, lookup, probes, traverse
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
@@ -897,12 +897,15 @@ def _probe_inputs(rng, b, dev):
 
 
 @pytest.mark.parametrize("iters", [0, 1, 5, 64, 4099])
-@pytest.mark.parametrize("b", [1, 32, 256, 1024])
+@pytest.mark.parametrize("b", [1, 32, 133, 256, 1024, 1057])
 def test_probe_kernels_match_plain(cuda, b, iters):
     """P1, P3 and P4 over random int32 tables and indices (and far and near
     floats for P4): loop counts on both sides of the 4-step unroll, and row
     counts on both sides of P1's and P4's switch between their two forms of
-    the step (B = 1024 takes the few-ops forms), each counted as its form."""
+    the step (B = 1024 takes the few-ops forms), each counted as its form.
+    On 132 SMs, P3 packs B = 133 as 67 blocks of 2 rows (the last holds
+    one) and B = 1057 as 133 blocks of 8 (the last holds one, in a second
+    wave: one block an SM)."""
     for name, args in _probe_inputs(np.random.default_rng([b, iters]), b, cuda).items():
         key = name if name == "chain_gather" else f"{name}_{probes.form(name, b)}"
         before = dict(probes.launches)
@@ -910,6 +913,23 @@ def test_probe_kernels_match_plain(cuda, b, iters):
         torch.cuda.synchronize()
         assert probes.launches == dict(before, **{key: before[key] + 1})
         assert torch.equal(got, getattr(probes, name + "_plain")(*args, iters)), name
+
+
+@pytest.mark.parametrize("b", [133, 1057])
+def test_chain_gather_writes_only_its_rows(cuda, b):
+    """P3's last block holds fewer rows than it has threads for: the rows
+    past B of a larger output keep what they held."""
+    rng = np.random.default_rng(b)
+    tab, idx = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape).astype(np.int32))
+                .to(cuda) for shape in ((16, 128), (b + 8, 128)))
+    out = torch.full((b + 8, 128), 12345, dtype=torch.int32, device=cuda)
+    build.check(build.lib().vt_chain_gather(tab.data_ptr(), idx.data_ptr(), b, 37,
+                                            out.data_ptr(),
+                                            torch.cuda.current_stream(cuda).cuda_stream),
+                "chain_gather")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:b], probes.chain_gather_plain(tab, idx[:b], 37))
+    assert bool((out[b:] == 12345).all())
 
 
 def test_probe_forms_switch_at_their_warps_a_scheduler(cuda):

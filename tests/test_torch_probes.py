@@ -162,6 +162,7 @@ def test_probe_entry_point_needs_a_card():
 U32 = np.uint32
 S, HALF, BIG = np.float32(1.0000001), np.float32(0.5), np.float32(1e9)
 SKEW, OFFSET_MASK = 32, U32(0x3FFF)
+CHAIN_COPIES, CHAIN_MASK = 16, U32(0x1FFFF)
 
 
 def _cu_threshold():
@@ -195,6 +196,37 @@ def lane_gather_skewed(tab, idx, iters, short_chain):
             acc = acc + v
             off = (off + (acc << U32(7))) & OFFSET_MASK
     return acc.view(np.int32)
+
+
+def chain_gather_skewed(tab, idx, iters, short_chain, reads=None):
+    """P3 as the kernel computes it: the 2,048-entry table staged once per
+    lane class (lane % 16; entry e for class c at word e * 16 + c), the
+    index carried as the byte offset e * 64 + c * 4, and one of the two
+    forms of the step.  With `reads`, the word address of every load, one
+    [B, 128] array a step, is appended to it."""
+    words = np.repeat(tab.reshape(-1).view(U32), CHAIN_COPIES)
+    lane_class = np.arange(128, dtype=U32) % CHAIN_COPIES
+    off = ((idx.view(U32) & U32(2047)) << U32(6)) | (lane_class << U32(2))
+    q, acc = off.copy(), np.zeros_like(off)
+    for _ in range(iters):
+        if reads is not None:
+            reads.append(off >> U32(2))
+        v = words[off >> U32(2)]
+        if short_chain:  # q = off + acc * 64, formed while the load is in flight
+            off = ((v << U32(6)) + q) & CHAIN_MASK
+            acc = acc + v
+            q = off + (acc << U32(6))
+        else:
+            acc = acc + v
+            off = (off + (acc << U32(6))) & CHAIN_MASK
+    return acc.view(np.int32)
+
+
+def _fullest_bank(word_addrs):
+    """The most distinct words any one of the 32 banks holds in any warp's
+    load: word_addrs [..., 128] (a row's 128 lanes are its 4 warps)."""
+    warps = word_addrs.reshape(-1, 32)
+    return max(max(np.unique(w[w % 32 == bank]).size for bank in range(32)) for w in warps)
 
 
 def alu_loop_steps(a, b, iters, short_chain):
@@ -250,8 +282,8 @@ def _p4_edge_inputs(rng):
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3, 5, 17])
-@pytest.mark.parametrize("form", ["P1 short chain", "P1 few ops", "P4 short chain",
-                                  "P4 few ops"])
+@pytest.mark.parametrize("form", ["P1 short chain", "P1 few ops", "P3 short chain",
+                                  "P3 few ops", "P4 short chain", "P4 few ops"])
 def test_kernel_steps_match_plain_and_pallas(pallas_probes, form, iters):
     """Each loop body of csrc/probes.cu, transcribed step by step, against
     the plain version and the Pallas probe (interpret mode; P4 op by op),
@@ -264,6 +296,11 @@ def test_kernel_steps_match_plain_and_pallas(pallas_probes, form, iters):
         plain = probes.alu_loop_plain(*map(torch.from_numpy, args), iters)
         with jax.disable_jit():
             want = np.asarray(pallas_probes["P4"](jnp.int32(iters), *map(jnp.asarray, args)))
+    elif form.startswith("P3"):
+        args = _inputs("P3", rng)
+        got = chain_gather_skewed(*args, iters, short_chain=form == "P3 short chain")
+        plain = probes.chain_gather_plain(*map(torch.from_numpy, args), iters)
+        want = np.asarray(pallas_probes["P3"](jnp.int32(iters), *map(jnp.asarray, args)))
     else:
         args = _inputs("P1", rng)
         got = lane_gather_skewed(*args, iters, short_chain=form == "P1 short chain")
@@ -271,6 +308,27 @@ def test_kernel_steps_match_plain_and_pallas(pallas_probes, form, iters):
         want = np.asarray(pallas_probes["P1"](jnp.int32(iters), *map(jnp.asarray, args)))
     np.testing.assert_array_equal(got, plain.numpy())
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("warps", ["random", "adversarial"])
+def test_p3_layout_puts_at_most_two_words_in_a_bank(warps):
+    """Every load of the P3 transcription, in every warp and at every step,
+    puts at most 2 distinct words in any one bank: 16 lane-class copies
+    give each class two banks.  The adversarial warps read 32 distinct
+    entries of one parity, all 0 mod 32 (a table of even values keeps them
+    even): there one copy of the table would put all 32 words in one bank."""
+    rng = np.random.default_rng(21)
+    for short_chain in (True, False):
+        if warps == "random":
+            tab, idx = _inputs("P3", rng)
+        else:
+            tab = (rng.integers(0, 2 ** 30, (16, 128)) * 2).astype(np.int32)
+            idx = np.tile((np.arange(32) * 64).astype(np.int32), (B, 4))
+            assert _fullest_bank(idx) == 32  # one copy: entry e in bank e % 32
+        reads = []
+        chain_gather_skewed(tab, idx, 17, short_chain, reads)
+        assert len(reads) == 17
+        assert max(_fullest_bank(r) for r in reads) == 2
 
 
 def test_p4_steps_match_plain_at_the_float_extremes():
@@ -285,3 +343,26 @@ def test_p4_steps_match_plain_at_the_float_extremes():
         want = probes.alu_loop_plain(*map(torch.from_numpy, (a, b)), iters).numpy()
         for short_chain in (True, False):
             np.testing.assert_array_equal(alu_loop_steps(a, b, iters, short_chain), want)
+
+
+def test_ptxas_report_names_each_probe_kernel():
+    """chip_smoke.py reads ptxas' report per kernel instance: each form of
+    P1's and P4's step, and P3's copies and form, named from the mangled
+    symbol, with its registers, stack frame and spills."""
+    import chip_smoke
+
+    prefix = "_ZN41_GLOBAL__N__bd669c93_9_probes_cu_f7074944"
+    symbols = {"19chain_gather_kernelILi16ELb1EEEvPKiS2_iiPi":
+               "chain_gather_kernel<16 copies, short chain>",
+               "19chain_gather_kernelILi8ELb0EEEvPKiS2_iiPi":
+               "chain_gather_kernel<8 copies, few ops>",
+               "18lane_gather_kernelILb1EEEvPKiS2_iPi": "lane_gather_kernel<short chain>",
+               "15alu_loop_kernelILb0EEEvPKiPKfxiPi": "alu_loop_kernel<few ops>"}
+    log = "".join(f"ptxas info    : Function properties for {prefix}{sym}\n"
+                  f"    0 bytes stack frame, {i} bytes spill stores, 0 bytes spill loads\n"
+                  f"ptxas info    : Used {20 + i} registers, used 1 barriers\n"
+                  for i, sym in enumerate(symbols))
+    got = chip_smoke.ptxas_functions(log)
+    assert [f["name"] for f in got] == list(symbols.values())
+    assert [(f["registers"], f["stack"], f["spill_stores"]) for f in got] == [
+        (20 + i, 0, i) for i in range(len(symbols))]

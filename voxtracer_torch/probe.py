@@ -14,7 +14,8 @@ power limit, and then:
       the yardstick the gathers are read against;
   P1  lane gather from a 128-entry row (kernels.probes.lane_gather),
       B = 256, 32 and 1024, each line naming the form of the step taken;
-  P3  gather from a 2048-entry table (chain_gather), B = 256;
+  P3  gather from a 2048-entry table (chain_gather), B = 256, 32 and
+      1024;
   P4  DDA-shaped int/f32 loop (alu_loop), B = 256, 32 and 1024, the same.
 
 The script's P2 (sublane gather, form 1) has no pallas_call, so it has no
@@ -52,8 +53,10 @@ INT32_LANES = 64       # int32 lanes per SM
 DISPATCH_LANES = 128   # 4 warp schedulers x 32 threads per clock per SM
 
 # per index and iteration, counted from each loop body: (table loads, int32
-# operations, all operations).  P1 and P4: the instructions of the fewer-op
-# form of the step in csrc/probes.cu's SASS (P4: 9, of them 5 integer)
+# operations, all operations).  P1, P3 and P4: the instructions of the
+# fewer-op form of the step in csrc/probes.cu's SASS (P4: 9, of them 5
+# integer; P3's 3-op form is weighed in scripts/torch_probe_variants.py).
+# A load is counted as one wavefront, the least a gather can take.
 COUNTS = {"X1": (2, 4, 6), "P1": (1, 3, 4), "P3": (1, 3, 4), "P4": (0, 5, 9)}
 # the script's loop counts, where k starts
 START_K = {"X1": 8, "P1": 4096, "P3": 512, "P4": 8192}
@@ -169,11 +172,11 @@ def main():
         idx = i32(rng.integers(0, 128, (b, 128)))
         run("P1", f"P1 lane gather 128-entry rows [B={b}, {probes.form('lane_gather', b)}]", b,
             lambda k: probes.lane_gather(tab, idx, k), b * 128)
-    b = 256
     ctab = i32(np.arange(2048).reshape(16, 128))
-    cidx = i32(rng.integers(0, 2048, (b, 128)))
-    run("P3", f"P3 gather 2048-entry table [B={b}]", b,
-        lambda k: probes.chain_gather(ctab, cidx, k), b * 128)
+    for b in (256, 32, 1024):
+        cidx = i32(rng.integers(0, 2048, (b, 128)))
+        run("P3", f"P3 gather 2048-entry table [B={b}]", b,
+            lambda k: probes.chain_gather(ctab, cidx, k), b * 128)
     for b in (256, 32, 1024):
         a = torch.ones((b, 128), dtype=torch.int32, device=dev)
         f = torch.ones((b, 128), dtype=torch.float32, device=dev)
