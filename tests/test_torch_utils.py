@@ -1,8 +1,10 @@
 """The port's utilities against the JAX package's, on the CPU: the
-running-average frame report, the counters, the npz checkpoints (each
-package reads the other's files), the progressive accumulator, PNG
-input/output and the profiler trace.  Mirrors tests/test_utils.py case
-for case, then adds the cross-package cases.
+running-average frame report, the npz checkpoints (each package reads
+the other's files), the progressive accumulator, PNG input/output and
+the profiler trace.  Mirrors tests/test_utils.py case for case (but the
+JAX package's Timer and Counters, which the port does not have; its
+spans are tests/test_torch_tracing.py's), then adds the cross-package
+cases.
 
 Tolerances: the report's stats equal JAX's exactly (host floats); a
 checkpoint's leaves come back bit for bit; the accumulator is within
@@ -27,7 +29,7 @@ from voxtracer_torch.render.accumulate import ProgressiveState
 from voxtracer_torch.render.camera import make_camera
 from voxtracer_torch.utils.checkpoint import (load_pytree, load_render_state, save_pytree,
                                               save_render_state)
-from voxtracer_torch.utils.profiling import Counters, FrameReport, Timer, device_trace
+from voxtracer_torch.utils.profiling import FrameReport, device_trace
 
 torch.set_num_threads(1)
 
@@ -49,24 +51,6 @@ def test_frame_report_stats_equal_jax():
     a, b = FrameReport(256, 212, stream=mine), JaxFrameReport(256, 212, stream=theirs)
     assert [a.frame(s) for s in secs] == [b.frame(s) for s in secs]
     assert mine.getvalue() == theirs.getvalue() and a.times == b.times
-
-
-def test_counters_emit():
-    buf = io.StringIO()
-    c = Counters(stream=buf)
-    c.add("rays", 100)
-    c.add("rays", 50)
-    c.emit(frame=1)
-    assert '"rays": 150' in buf.getvalue()
-    assert c.data == {}
-
-
-def test_timer_counts_up():
-    t = Timer()
-    a = t.elapsed()
-    assert 0.0 <= a <= t.elapsed()
-    t.reset()
-    assert t.elapsed() >= 0.0
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -5,7 +5,8 @@ A key is a pair of uint32 words held as Python ints, ``(k0, k1)``, the
 same two words as a raw ``jax.random.PRNGKey``.  Key derivation
 (``fold_in``, threefry2x32) and the per-stream seed are scalar host work;
 only the per-element PCG hash runs on tensors.  Every stream here equals
-the JAX package's bit for bit.
+the JAX package's bit for bit.  Each draw is one span of the program
+(``vt.rng.hash``, ``vt.rng.threefry``; utils/profiling.span).
 
 torch has no uint32 add or right shift on the CPU, so the hash computes in
 int64 and masks with ``& 0xFFFFFFFF``.  Every product stays below 2**63:
@@ -20,6 +21,7 @@ import math
 import torch
 
 from voxtracer_torch.core.mathx import sqrt
+from voxtracer_torch.utils.profiling import span
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -108,18 +110,24 @@ def hash_bits(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     return _pcg(x ^ ((base * _PRIME1) & M32)).reshape(shape)
 
 
-def hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
-    """f32 uniforms in [0, 1): the top 24 hash bits scaled."""
+def _hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     bits = hash_bits(key, salt, shape, device, lanes)
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
+    """f32 uniforms in [0, 1): the top 24 hash bits scaled."""
+    with span("vt.rng.hash"):
+        return _hash_uniform(key, salt, shape, device, lanes)
+
+
 def hash_normal(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """f32 standard normals by Box-Muller over two uniform streams."""
-    u1 = hash_uniform(key, salt, shape, device, lanes)
-    u2 = hash_uniform(key, salt + 0x5D0, shape, device, lanes)
-    r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
-    return r * torch.cos((2.0 * math.pi) * u2)
+    with span("vt.rng.hash"):
+        u1 = _hash_uniform(key, salt, shape, device, lanes)
+        u2 = _hash_uniform(key, salt + 0x5D0, shape, device, lanes)
+        r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+        return r * torch.cos((2.0 * math.pi) * u2)
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +156,8 @@ def _unit_floats(bits):
 def threefry_uniform(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``, bit for bit; `lanes`
     and `axis` as in ``threefry_bits``."""
-    return _unit_floats(threefry_bits(key, shape, device, lanes, axis))
+    with span("vt.rng.threefry"):
+        return _unit_floats(threefry_bits(key, shape, device, lanes, axis))
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),
@@ -186,6 +195,7 @@ def threefry_normal(key: tuple, shape, device, lanes=None, axis: int = 0) -> tor
     polynomial, which XLA evaluates with fused multiply-adds, so the
     normals agree to a few ulps (tests/test_torch_reproject.py).  `lanes`
     and `axis` as in ``threefry_bits``."""
-    u = _unit_floats(threefry_bits(key, shape, device, lanes, axis)) * 2.0 + _NORMAL_LO
-    u = torch.clamp(u, min=_NORMAL_LO)
-    return math.sqrt(2.0) * erf_inv(u)
+    with span("vt.rng.threefry"):
+        u = _unit_floats(threefry_bits(key, shape, device, lanes, axis)) * 2.0 + _NORMAL_LO
+        u = torch.clamp(u, min=_NORMAL_LO)
+        return math.sqrt(2.0) * erf_inv(u)

@@ -28,6 +28,7 @@ from voxtracer_torch.diff.volumetric import (DiffParams, max_aabb_crossings,
 from voxtracer_torch.render.camera import primary_rays
 from voxtracer_torch.render.integrator import render_tiled
 from voxtracer_torch.render.sky import sample_sky
+from voxtracer_torch.utils.profiling import span
 
 F32 = torch.float32
 
@@ -92,24 +93,27 @@ def prepare_bins(scene: Scene, cfg: RenderConfig, target, bin_steps=(2, 10),
 def binned_grads(params: DiffParams, scene: Scene, plan: BinPlan):
     """(loss, DiffParams of gradients): the sums over the plan's bins of
     ``mse_loss_active`` and its gradient, one bin's graph at a time."""
-    leaves = trainable(params)
-    total = torch.zeros((), dtype=F32, device=scene.device)
-    for b in plan.bins:
-        loss = mse_loss_active(leaves, scene, b.o, b.d, b.bg, b.target, plan.denom,
-                               b.steps, k=plan.k, span_steps=plan.span_steps,
-                               clamp=b.clamp, n_active=b.n_active, spans=b.spans,
-                               importance=plan.importance if b.clamp else 0)
-        loss.backward()
-        total = total + loss.detach()
-    return total, DiffParams(density_logits=leaves.density_logits.grad,
-                             albedo_table=leaves.albedo_table.grad)
+    with span("vt.train.grad"):
+        leaves = trainable(params)
+        total = torch.zeros((), dtype=F32, device=scene.device)
+        for b in plan.bins:
+            with span("vt.grad.march"):
+                loss = mse_loss_active(leaves, scene, b.o, b.d, b.bg, b.target, plan.denom,
+                                       b.steps, k=plan.k, span_steps=plan.span_steps,
+                                       clamp=b.clamp, n_active=b.n_active, spans=b.spans,
+                                       importance=plan.importance if b.clamp else 0)
+            with span("vt.grad.backward"):
+                loss.backward()
+            total = total + loss.detach()
+        return total, DiffParams(density_logits=leaves.density_logits.grad,
+                                 albedo_table=leaves.albedo_table.grad)
 
 
 def fused_step(params: DiffParams, scene: Scene, cfg: RenderConfig, key, plan: BinPlan,
                tiles: int = 1):
     """One path-traced forward frame (1 spp) and the binned gradient:
     returns (the frame's mean radiance, DiffParams of gradients)."""
-    with torch.no_grad():
+    with torch.no_grad(), span("vt.train.fwd"):
         img_mean = render_tiled(scene, cfg, key, 1, tiles).mean()
     _, grads = binned_grads(params, scene, plan)
     return img_mean, grads
@@ -138,7 +142,8 @@ def make_train_step(cfg: RenderConfig, n_steps: int = 64, lr: float = 1e-2, grad
             loss, grads = grad_fn(params, scene, target)
             params.density_logits.grad = grads.density_logits
             params.albedo_table.grad = grads.albedo_table
-        opt.step()
+        with span("vt.train.adam"):
+            opt.step()
         return params, opt, loss.detach()
 
     return step, init

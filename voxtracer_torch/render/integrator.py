@@ -42,6 +42,7 @@ from voxtracer_torch.kernels.primitives import (spheres_nearest,
 from voxtracer_torch.kernels.traverse import exit_march, traverse
 from voxtracer_torch.render.camera import primary_rays
 from voxtracer_torch.render.sky import sample_sky
+from voxtracer_torch.utils.profiling import span
 
 BIG = 1e34
 F32 = torch.float32
@@ -768,7 +769,8 @@ def _trace_chunks(scene: Scene, cfg: RenderConfig, pk, bkey, live_end: int, ch: 
         if lo < hi:
             st, pix = _unpack_path(pk[:, lo - first:hi - first])
             at = None if hi - lo == ch else (lo - j * ch, ch)
-            st = _bounce_core(scene, cfg, st, fold_in(bkey, j), at)
+            with span("vt.bounce"):
+                st = _bounce_core(scene, cfg, st, fold_in(bkey, j), at)
             pk[:, lo - first:hi - first] = _pack_path(st, pix)
         j += 1
     return pk
@@ -783,15 +785,16 @@ def _unpermute(scene: Scene, cfg: RenderConfig, state, pix, first: int, total: i
     [n, 3], flags [n] or None) of the first lanes [first, first + n)."""
     n, dev = pix.shape[0], pix.device
     rows = list(_apply_deferred_sky(scene, cfg, state)) + [pix]
-    if "in_light" in state:
-        rows.append(state["in_light"].to(F32))
-    out = torch.stack(rows)
-    if comm is not None:
-        out = comm.gather(out, "unpermute")
-    inv = torch.empty(total, dtype=torch.int64, device=dev)
-    inv[out[3].to(torch.int64)] = torch.arange(total, device=dev)
-    out = out.index_select(1, inv[first:first + n])
-    return out[:3].T.contiguous(), out[4] > 0.5 if len(rows) > 4 else None
+    with span("vt.reorder.undo"):
+        if "in_light" in state:
+            rows.append(state["in_light"].to(F32))
+        out = torch.stack(rows)
+        if comm is not None:
+            out = comm.gather(out, "unpermute")
+        inv = torch.empty(total, dtype=torch.int64, device=dev)
+        inv[out[3].to(torch.int64)] = torch.arange(total, device=dev)
+        out = out.index_select(1, inv[first:first + n])
+        return out[:3].T.contiguous(), out[4] > 0.5 if len(rows) > 4 else None
 
 
 def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key, lanes=None,
@@ -822,7 +825,7 @@ def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key, lanes=Non
     n, dev = state["active"].shape[0], state["active"].device
     first, total = (0, n) if lanes is None else lanes
     lo, hi = _world_bounds(scene)
-    span = torch.clamp(hi - lo, min=1e-6)
+    box = torch.clamp(hi - lo, min=1e-6)
     per = max(cfg.bounce_reorder_period, 1)
     kc = cfg.reorder_compact_chunks
     chunked = kc > 1 and total % kc == 0
@@ -831,11 +834,12 @@ def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key, lanes=Non
         if not _any_active(state["active"], comm):
             break
         if depth > 0 and (depth - 1) % per == 0:
-            pk = _pack_path(state, pix)
-            if comm is not None:
-                pk = comm.gather(pk, "reorder")
-            perm = _reorder_perm(pk, lo, span)[first:first + n]
-            state, pix = _unpack_path(pk.index_select(1, perm))
+            with span("vt.reorder"):
+                pk = _pack_path(state, pix)
+                if comm is not None:
+                    pk = comm.gather(pk, "reorder")
+                perm = _reorder_perm(pk, lo, box)[first:first + n]
+                state, pix = _unpack_path(pk.index_select(1, perm))
         bkey = fold_in(key, depth)
         if chunked:
             lane = torch.arange(first + 1, first + n + 1, device=dev)
@@ -846,7 +850,8 @@ def _trace_path_reordered(scene: Scene, cfg: RenderConfig, state, key, lanes=Non
                                total // kc, first)
             state, pix = _unpack_path(pk)
         else:
-            state = _bounce_core(scene, cfg, state, bkey, lanes)
+            with span("vt.bounce"):
+                state = _bounce_core(scene, cfg, state, bkey, lanes)
     return _unpermute(scene, cfg, state, pix, first, total, comm)
 
 
@@ -941,7 +946,8 @@ def trace_path(scene: Scene, cfg: RenderConfig, o, d, key, return_aux: bool = Fa
         for depth in range(cfg.max_bounces + 1):
             if not bool(state["active"].any()):
                 break
-            state = _bounce_core(scene, cfg, state, fold_in(key, depth), lanes)
+            with span("vt.bounce"):
+                state = _bounce_core(scene, cfg, state, fold_in(key, depth), lanes)
         rad, in_light = cstack(_apply_deferred_sky(scene, cfg, state)), state.get("in_light")
     if not return_aux:
         return rad
