@@ -123,7 +123,8 @@ the same function, where there is one.
 
 Tolerances: hit, vol, cell and in_vol identical; t within rtol = atol =
 1e-6; normals within 1e-5 (the kernel takes rsqrtf, as the plain
-version's torch.rsqrt does on the card); lookup rows and probe results identical; lookup backward per entry within 1e-5 * (sum of
+version's torch.rsqrt does on the card); lookup rows and probe results identical;
+the random streams' draws identical bit for bit (int32 views); lookup backward per entry within 1e-5 * (sum of
 |ct| over that entry's rows) + 1e-6 (the kernel adds in no fixed order;
 at the captured shapes the plan's accumulator is held to it and the
 other one's error is reported beside it); forward images (and the
@@ -505,11 +506,15 @@ def ptxas_functions(text):
                             mangled)
                 form = re.search(r"(?:lane_gather|alu_loop)_kernelILb(\d)E", mangled)
                 chain = re.search(r"chain_gather_kernelILi(\d+)ELb(\d)E", mangled)
+                draw = re.search(r"rng_kernelI.*?E(\d)E.*?E(\d)E", mangled)
                 if form:  # the two forms of P1's and P4's step
                     name += ("<few ops>", "<short chain>")[int(form.group(1))]
                 elif chain:  # P3's copies of its table and form of its step
                     name += (f"<{chain.group(1)} copies, "
                              f"{('few ops', 'short chain')[int(chain.group(2))]}>")
+                elif draw:  # the random streams' generator and output
+                    name += (f"<{('hash', 'threefry')[int(draw.group(1))]}, "
+                             f"{('uniform', 'normal')[int(draw.group(2))]}>")
             cur = dict(name=name)
             out.append(cur)
             continue
@@ -805,6 +810,55 @@ def exit_bound(args, out, tally):
     return bound(by + 4 * int(out["in_vol"].sum()), walk_ops(tally))
 
 
+# 32-bit operations an element of each draw of csrc/rng.cu, counted from
+# its source (each of logf, log1pf, cosf and a square root one: a lower
+# bound): hash bits 18 (two PCG steps of 8, two xors), threefry bits 73
+# (two key adds, 20 rounds of add, rotate, xor, five injections of two
+# adds, the final xor); a uniform 3 more, a Box-Muller normal 7 more over
+# two uniforms, an erf_inv normal 40 more
+RNG_OPS = dict(hash_uniform=21, hash_normal=49, threefry_uniform=76, threefry_normal=116)
+
+
+def rng_draws(dev, key, n, report):
+    """The random streams' kernel (csrc/rng.cu) at the 1080p frames'
+    shapes, each draw held bit for bit (int32 views) to its plain torch ops
+    and timed per launch against them: the path's hash normals (3, n) and
+    uniforms (n, 2) and (3, n); the reprojected frame's threefry normals
+    (n, 3) and uniforms (n, 2) and (n, 3).  One ``report`` entry a
+    generator: the first draw's times, every draw's under ``draws``."""
+    import torch
+
+    from voxtracer_torch.core import rng
+
+    salt_key = {"hash": (key, 4), "threefry": (rng.fold_in(key, 4),)}
+    for gen, draws in (("hash", (("normal", (3, n)), ("uniform", (n, 2)), ("uniform", (3, n)))),
+                       ("threefry", (("normal", (n, 3)), ("uniform", (n, 2)),
+                                     ("uniform", (n, 3))))):
+        entries = []
+        for out, shape in draws:
+            name = f"{gen}_{out}"
+            args = (*salt_key[gen], shape, dev)
+            got = getattr(rng, name)(*args)
+            want = getattr(rng, name + "_plain")(*args)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{name} {shape}: the kernel is not its plain version bit for bit")
+            kern = per_launch(functools.partial(getattr(rng, name), *args))
+            plain = per_launch(functools.partial(getattr(rng, name + "_plain"), *args),
+                               windows=3)
+            bnd = bound(nbytes(got), RNG_OPS[name] * got.numel())
+            entries.append((name, shape, kern, plain, bnd))
+        name, shape, kern, plain, bnd = entries[0]
+        report(f"rng_{gen}", "voxtracer_torch/csrc/rng.cu",
+               "none: XLA elementwise ops of voxtracer/core/rng.py", 0.0, kern, plain, bnd,
+               None, draws=[dict(draw=d, shape=list(s), ms=k[0], host_us=k[1], plain_ms=p[0],
+                                 plain_host_us=p[1], bound_ms=b[0], bound_by=b[1])
+                            for d, s, k, p, b in entries])
+        for d, s, k, p, b in entries:
+            log(f"    {d} {tuple(s)}: kernel {k[0]:.4f} ms ({k[1]:.1f} us host) = "
+                f"{b[0] / k[0]:.0%} of bound {b[0]:.4f} ms ({b[1]}), plain {p[0]:.4f} ms "
+                f"({p[1]:.1f} us host)")
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -818,24 +872,29 @@ def max_err(a, b):
 def plain_versions(chunked=False):
     """Swap the plain versions in for the kernels in every binding the
     port reaches them through: the integrator's (which every renderer,
-    render/reproject.py included, uses), the relaxed march's traversal and
-    the lookup module's own names (which its autograd Function calls).
+    render/reproject.py included, uses), the relaxed march's traversal,
+    the lookup module's own names (which its autograd Function calls) and
+    the random streams' ``draw`` (which every draw of core/rng.py calls).
     chunked: the integrator's K1/K2 calls go through ``plain_traversal``
     (the active rays only, at most PLAIN_PAIRS pairs at a time), which a
     1080p frame over 111 volumes needs."""
     from voxtracer_torch.diff import volumetric
-    from voxtracer_torch.kernels import lookup, traverse
+    from voxtracer_torch.kernels import lookup, rng, traverse
     from voxtracer_torch.render import integrator
 
     def chunked_traversal(*args, mode="nearest"):
         return plain_traversal(args, mode)
+
+    def plain_draw(*args, plain, **kw):
+        return plain()
 
     swaps = [(integrator, "traverse", chunked_traversal if chunked else traverse.traverse_plain),
              (integrator, "exit_march", traverse.exit_march_plain),
              (integrator, "lookup_rows", lookup.lookup_rows_plain),
              (volumetric, "traverse", traverse.traverse_plain),
              (lookup, "lookup_rows", lookup.lookup_rows_plain),
-             (lookup, "lookup_rows_bwd", lookup.lookup_rows_bwd_plain)]
+             (lookup, "lookup_rows_bwd", lookup.lookup_rows_bwd_plain),
+             (rng, "draw", plain_draw)]
     kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
     for mod, attr, plain in swaps:
         setattr(mod, attr, plain)
@@ -1421,15 +1480,15 @@ STEP_SIZE = (1920, 1080)
 
 
 def _kernel_counts():
-    from voxtracer_torch.kernels import lookup, traverse
+    from voxtracer_torch.kernels import lookup, rng, traverse
 
-    return dict(traverse.launches, **lookup.launches)
+    return dict(traverse.launches, **lookup.launches, **rng.launches)
 
 
 def _reset_kernel_counts():
-    from voxtracer_torch.kernels import lookup, traverse
+    from voxtracer_torch.kernels import lookup, rng, traverse
 
-    for c in (traverse.launches, lookup.launches):
+    for c in (traverse.launches, lookup.launches, rng.launches):
         for k in c:
             c[k] = 0
 
@@ -2427,6 +2486,7 @@ def main(argv=None) -> int:
     from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_LOW_DENSITY, SMOKE_PLAYER
     from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, probes, traverse
+    from voxtracer_torch.kernels import rng as rng_kernel
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
     from voxtracer_torch.kernels.dda_occ import entry_t
     from voxtracer_torch.render import integrator, reproject
@@ -2498,12 +2558,13 @@ def main(argv=None) -> int:
             f"{bnd[3]:.4f} ms), library {lib_txt} ({smi})")
 
     def reset_counts():
-        for c in (traverse.launches, lookup.launches, probes.launches):
+        for c in (traverse.launches, lookup.launches, probes.launches, rng_kernel.launches):
             for kk in c:
                 c[kk] = 0
 
     def counts():
-        return dict(traverse.launches, **lookup.launches, **probes.launches)
+        return dict(traverse.launches, **lookup.launches, **probes.launches,
+                    **rng_kernel.launches)
 
     def time_traversal(label, mode, args, plain_too=False, with_base=True):
         """K1 or K2 on one call: held against the plain version; then per
@@ -2613,6 +2674,9 @@ def main(argv=None) -> int:
     idx = torch.randint(-8, 264, (n,), generator=gen, device=dev, dtype=torch.int32)
     check(torch.equal(lookup.lookup_rows(mtab, idx), lookup.lookup_rows_plain(mtab, idx)),
           "K4 rows differ")
+
+    # the random streams at the frames' shapes
+    rng_draws(dev, key, n, report)
 
     # ---- 4 + 5. the forward half of the main path, counted: 1080p
     # monu-like, then media

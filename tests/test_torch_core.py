@@ -7,6 +7,7 @@ the same way: the fast approximations, the ray offset and the random
 streams must agree bit for bit.
 """
 
+import math
 import subprocess
 import sys
 import textwrap
@@ -32,6 +33,7 @@ from voxtracer.scene.volume import solid_grid as jax_solid_grid
 from voxtracer_torch.core import mathx, rng, transforms
 from voxtracer_torch.core.types import Sky
 from voxtracer_torch.io.hdr import procedural_sky
+from voxtracer_torch.kernels import rng as rng_kernel
 from voxtracer_torch.render.camera import make_camera, primary_rays
 from voxtracer_torch.render.sky import sample_sky
 from voxtracer_torch.scene import presets
@@ -104,6 +106,70 @@ def test_hash_streams_match_jax(seed, salt, shape):
     np.testing.assert_allclose(np.asarray(jrng.hash_normal(jk, salt, shape)),
                                rng.hash_normal(tk, salt, shape, "cpu").numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def _map_counters(shape, m):
+    """csrc/rng.cu ``counter()`` over every flat index of `shape`, in int64."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64)
+    if m.lanes is None and m.row_stride == m.blk:
+        return m.off + i
+    r = i // m.blk
+    q = i - r * m.blk
+    if m.lanes is None:
+        return r * m.row_stride + m.off + q
+    a = q // m.inner
+    return r * m.row_stride + m.lanes.long()[a] * m.inner + (q - a * m.inner)
+
+
+def _lane_list(size, total, seed):
+    """`size` distinct global lane indices of `total`, in no order."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randperm(total, generator=g)[:size]
+
+
+# (shape, lanes, axis): the draws' shapes with every form of `lanes`
+COUNTER_CASES = [
+    *[(shape, None, axis) for shape in [(37,), (2, 37), (3, 37), (37, 2), (37, 3)]
+      for axis in (0, -1)],
+    ((37,), (5, 100), -1), ((3, 37), (0, 37), -1), ((3, 37), (11, 200), -1),
+    ((2, 37), (60, 97), -1), ((37, 2), (11, 200), -1), ((37, 3), (11, 200), 0),
+    ((37, 2), (11, 200), 0), ((3, 37), (1, 5), 0), ((2, 3, 37), (4, 9), 1),
+    ((37,), (_lane_list(37, 120, 0), 120), -1), ((3, 37), (_lane_list(37, 80, 1), 80), -1),
+    ((37, 3), (_lane_list(37, 64, 2), 64), 0), ((37, 2), (_lane_list(37, 37, 3), 37), 0),
+    ((2, 37), (2 ** 32 - 20, 2 ** 32 + 50), -1), ((37, 3), (2 ** 32 + 7, 2 ** 33), 0),
+]
+
+
+@pytest.mark.parametrize("shape,lanes,axis", COUNTER_CASES)
+def test_kernel_counter_map_is_counters(shape, lanes, axis):
+    """The affine map the stream kernel evaluates gives each element the
+    counter ``core.rng.counters`` gives it, for a window of lanes on either
+    axis, a list of lanes, and a window past 2**32 lanes (threefry's hi
+    word non-zero)."""
+    m = rng_kernel.counter_map(shape, lanes, axis)
+    assert m.blk * m.inner > 0 and math.prod(shape) % m.blk == 0
+    want = rng.counters(shape, "cpu", lanes, axis)
+    assert torch.equal(_map_counters(shape, m), want)
+    if lanes is not None and not torch.is_tensor(lanes[0]) and lanes[0] >= 2 ** 32 - 20:
+        assert (want >> 32).max() > 0
+
+
+@pytest.mark.parametrize("draw", ["hash_uniform", "hash_normal", "threefry_uniform",
+                                  "threefry_normal"])
+def test_cpu_draws_take_the_plain_version(draw):
+    """A CPU device runs the plain torch ops (no launch); any device but
+    the CPU and CUDA raises."""
+    before = dict(rng_kernel.launches)
+    key = rng.fold_in(rng.make_key(7), 2)
+    args = (key, 3) if draw.startswith("hash") else (key,)
+    plain = getattr(rng, draw + "_plain")
+    for dev, lanes in (("cpu", None), (torch.device("cpu"), (4, 50))):
+        got = getattr(rng, draw)(*args, (3, 21), dev, lanes)
+        want = plain(*args, (3, 21), dev, lanes)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert rng_kernel.launches == before
+    with pytest.raises(ValueError, match="no random streams"):
+        getattr(rng, draw)(*args, (3, 21), "meta")
 
 
 def test_primary_rays_match_jax():

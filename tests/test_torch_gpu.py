@@ -3,7 +3,8 @@
 Each test builds the kernels (nvcc, csrc/) on first use, launches one on
 CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
-lookup rows and the probes' results identical, the lookup's backward per entry within
+lookup rows, the probes' results and the random streams' float bits
+identical, the lookup's backward per entry within
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
 atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
@@ -41,7 +42,9 @@ from voxtracer_torch.kernels import build, lookup, probes, traverse
 from voxtracer_torch.kernels.dda import BIG
 from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
+from voxtracer_torch.core import rng
 from voxtracer_torch.core.rng import fold_in, make_key
+from voxtracer_torch.kernels import rng as rng_kernel
 from voxtracer_torch.render import integrator, reproject
 from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
 
@@ -1104,3 +1107,71 @@ def test_importance_gradient_kernels_match_plain(cuda):
     for f in ("density_logits", "albedo_table"):
         g, w = getattr(got, f), getattr(want, f)
         assert float((g - w).norm() / w.norm()) <= 1e-4, f
+
+
+RNG_DRAWS = ["hash_uniform", "hash_normal", "threefry_uniform", "threefry_normal"]
+RNG_N = [2_073_600, 2_073_599]  # the 1080p wavefront, and a ragged tail
+
+
+def _rng_args(draw, seed):
+    key = fold_in(make_key(seed), 9)
+    return (key, 6) if draw.startswith("hash") else (key,)
+
+
+def _kernel_is_plain(draw, shape, dev, lanes=None, axis=None, seed=0):
+    """One kernel draw, bit for bit its plain torch ops on the card, in one
+    launch."""
+    args = _rng_args(draw, seed)
+    kw = {} if axis is None else {"axis": axis}
+    name = "rng_" + draw.split("_")[0]
+    before = dict(rng_kernel.launches)
+    got = getattr(rng, draw)(*args, shape, dev, lanes, **kw)
+    after = dict(rng_kernel.launches)
+    want = getattr(rng, draw + "_plain")(*args, shape, dev, lanes, **kw)
+    torch.cuda.synchronize()
+    assert after[name] == before[name] + 1 and sum(after.values()) == sum(before.values()) + 1
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.is_cuda
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+
+@pytest.mark.parametrize("draw", RNG_DRAWS)
+@pytest.mark.parametrize("n", RNG_N)
+@pytest.mark.parametrize("shape", ["n", "2n", "3n", "n2", "n3"])
+def test_rng_kernel_is_its_plain_version(cuda, draw, n, shape):
+    """Each stream at the frames' shapes: the kernel's float32 bits equal
+    the plain int64 torch ops', one launch a draw."""
+    shape = {"n": (n,), "2n": (2, n), "3n": (3, n), "n2": (n, 2), "n3": (n, 3)}[shape]
+    _kernel_is_plain(draw, shape, cuda, seed=n)
+
+
+@pytest.mark.parametrize("draw,form", [
+    (draw, form) for draw in RNG_DRAWS
+    for form in ["window_last", "lane_list_last", "past_2_32"]
+    + ([] if draw.startswith("hash") else ["window_first", "lane_list_first"])])
+def test_rng_kernel_lanes_are_its_plain_version(cuda, draw, form):
+    """Windows of lanes on the last axis and on the first (threefry's
+    axis; the hash streams' lanes run along the last axis alone), lists of
+    lane indices (the sharded whitted queue) and a window
+    past 2**32 lanes (threefry's hi word non-zero), bit for bit."""
+    n = RNG_N[1]
+    ids = torch.randperm(3 * n, generator=torch.Generator().manual_seed(5))[:n]
+    shape, lanes, axis = {
+        "window_last": ((3, n), (1_000, n + 5_000), -1),
+        "window_first": ((n, 3), (777, 2 * n), 0),
+        "lane_list_last": ((3, n), (ids.to(cuda), 3 * n), -1),
+        "lane_list_first": ((n, 2), (ids.to(cuda), 3 * n), 0),
+        "past_2_32": ((2, n), (2 ** 32 - 1_000, 2 ** 32 + n), -1),
+    }[form]
+    _kernel_is_plain(draw, shape, cuda, lanes, None if draw.startswith("hash") else axis,
+                     seed=3)
+
+
+def test_rng_kernel_refuses_what_it_does_not_take(cuda):
+    """An empty draw launches nothing; a lane list of the wrong length
+    raises."""
+    before = dict(rng_kernel.launches)
+    assert rng.hash_uniform(make_key(0), 1, (0, 3), cuda).shape == (0, 3)
+    assert rng_kernel.launches == before
+    with pytest.raises(ValueError, match="lane indices"):
+        rng.threefry_uniform(make_key(0), (4, 3), cuda, (torch.arange(5, device=cuda), 9), 0)

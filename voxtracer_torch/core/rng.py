@@ -3,15 +3,19 @@ and of the ``jax.random.fold_in`` key tree the integrator derives).
 
 A key is a pair of uint32 words held as Python ints, ``(k0, k1)``, the
 same two words as a raw ``jax.random.PRNGKey``.  Key derivation
-(``fold_in``, threefry2x32) and the per-stream seed are scalar host work;
-only the per-element PCG hash runs on tensors.  Every stream here equals
-the JAX package's bit for bit.  Each draw is one span of the program
+(``fold_in``, threefry2x32), the per-stream seed and the words a draw
+hands the generator are scalar host work.  Each draw is one call of
+``kernels/rng.draw``: on a CUDA device one launch of csrc/rng.cu, which
+makes each element's counter, runs the generator and writes the float32
+result; on the CPU the ``*_plain`` version, torch ops on int64 tensors.
+Every stream here equals the JAX package's bit for bit, and the kernel
+equals the plain version bit for bit.  Each draw is one span of the program
 (``vt.rng.hash``, ``vt.rng.threefry``; utils/profiling.span).
 
-torch has no uint32 add or right shift on the CPU, so the hash computes in
-int64 and masks with ``& 0xFFFFFFFF``.  Every product stays below 2**63:
-each factor of a tensor product is below 2**32 and the constants below
-2**30.
+torch has no uint32 add or right shift on the CPU, so the plain versions
+compute in int64 and mask with ``& 0xFFFFFFFF``.  Every product stays
+below 2**63: each factor of a tensor product is below 2**32 and the
+constants below 2**30.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import math
 import torch
 
 from voxtracer_torch.core.mathx import sqrt
+from voxtracer_torch.kernels import rng as kernel
 from voxtracer_torch.utils.profiling import span
 
 M32 = 0xFFFFFFFF
@@ -102,15 +107,23 @@ def counters(shape, device, lanes=None, axis: int = -1) -> torch.Tensor:
     return idx.reshape(-1)
 
 
+def _hash_words(key: tuple, salt: int) -> tuple:
+    """(base, mix) of the hash stream `salt` under `key`."""
+    base = _pcg(key_seed(key) ^ ((salt * _GOLDEN) & M32))
+    return base, (base * _PRIME1) & M32
+
+
 def hash_bits(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """uint32 hash stream over (seed, salt, counter), as int64 values;
     the lanes of a window (``counters``) run along the last axis."""
-    base = _pcg(key_seed(key) ^ ((salt * _GOLDEN) & M32))
+    base, mix = _hash_words(key, salt)
     x = _pcg(counters(shape, device, lanes, -1) ^ base)
-    return _pcg(x ^ ((base * _PRIME1) & M32)).reshape(shape)
+    return _pcg(x ^ mix).reshape(shape)
 
 
-def _hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
+def hash_uniform_plain(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
+    """``hash_uniform`` by torch ops on int64 tensors: the CPU path and the kernel's
+    plain version."""
     bits = hash_bits(key, salt, shape, device, lanes)
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
@@ -118,16 +131,25 @@ def _hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Ten
 def hash_uniform(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """f32 uniforms in [0, 1): the top 24 hash bits scaled."""
     with span("vt.rng.hash"):
-        return _hash_uniform(key, salt, shape, device, lanes)
+        return kernel.draw(kernel.HASH, kernel.UNIFORM, _hash_words(key, salt), shape, device,
+                           lanes, plain=lambda: hash_uniform_plain(key, salt, shape, device, lanes))
+
+
+def hash_normal_plain(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
+    """``hash_normal`` by torch ops on int64 tensors: the CPU path and the kernel's
+    plain version."""
+    u1 = hash_uniform_plain(key, salt, shape, device, lanes)
+    u2 = hash_uniform_plain(key, salt + 0x5D0, shape, device, lanes)
+    r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    return r * torch.cos((2.0 * math.pi) * u2)
 
 
 def hash_normal(key: tuple, salt: int, shape, device, lanes=None) -> torch.Tensor:
     """f32 standard normals by Box-Muller over two uniform streams."""
     with span("vt.rng.hash"):
-        u1 = _hash_uniform(key, salt, shape, device, lanes)
-        u2 = _hash_uniform(key, salt + 0x5D0, shape, device, lanes)
-        r = sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
-        return r * torch.cos((2.0 * math.pi) * u2)
+        return kernel.draw(kernel.HASH, kernel.NORMAL,
+                           _hash_words(key, salt) + _hash_words(key, salt + 0x5D0), shape, device,
+                           lanes, plain=lambda: hash_normal_plain(key, salt, shape, device, lanes))
 
 
 # --------------------------------------------------------------------------
@@ -153,11 +175,18 @@ def _unit_floats(bits):
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
 
 
+def threefry_uniform_plain(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
+    """``threefry_uniform`` by torch ops on int64 tensors: the CPU path
+    and the kernel's plain version."""
+    return _unit_floats(threefry_bits(key, shape, device, lanes, axis))
+
+
 def threefry_uniform(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``, bit for bit; `lanes`
     and `axis` as in ``threefry_bits``."""
     with span("vt.rng.threefry"):
-        return _unit_floats(threefry_bits(key, shape, device, lanes, axis))
+        return kernel.draw(kernel.THREEFRY, kernel.UNIFORM, key, shape, device, lanes, axis,
+                           plain=lambda: threefry_uniform_plain(key, shape, device, lanes, axis))
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011),
@@ -189,6 +218,14 @@ def erf_inv(x):
 _NORMAL_LO = -0.99999994039535522  # nextafter(-1, 0) in float32
 
 
+def threefry_normal_plain(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
+    """``threefry_normal`` by torch ops on int64 tensors: the CPU path
+    and the kernel's plain version."""
+    u = _unit_floats(threefry_bits(key, shape, device, lanes, axis)) * 2.0 + _NORMAL_LO
+    u = torch.clamp(u, min=_NORMAL_LO)
+    return math.sqrt(2.0) * erf_inv(u)
+
+
 def threefry_normal(key: tuple, shape, device, lanes=None, axis: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: sqrt(2) * erf_inv(u) of
     a uniform u in (-1, 1).  The uniform is bit-equal; erf_inv is XLA's
@@ -196,6 +233,5 @@ def threefry_normal(key: tuple, shape, device, lanes=None, axis: int = 0) -> tor
     normals agree to a few ulps (tests/test_torch_reproject.py).  `lanes`
     and `axis` as in ``threefry_bits``."""
     with span("vt.rng.threefry"):
-        u = _unit_floats(threefry_bits(key, shape, device, lanes, axis)) * 2.0 + _NORMAL_LO
-        u = torch.clamp(u, min=_NORMAL_LO)
-        return math.sqrt(2.0) * erf_inv(u)
+        return kernel.draw(kernel.THREEFRY, kernel.NORMAL, key, shape, device, lanes, axis,
+                           plain=lambda: threefry_normal_plain(key, shape, device, lanes, axis))

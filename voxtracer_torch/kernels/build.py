@@ -89,6 +89,8 @@ _SIGNATURES = {
     "vt_lane_gather": [_P, _P, _I, _I, _P, _P],
     "vt_chain_gather": [_P, _P, _I, _I, _P, _P],
     "vt_alu_loop": [_P, _P, ctypes.c_longlong, _I, _P, _P],
+    "vt_rng": [_I, _I, _P] + [ctypes.c_uint] * 3 + [ctypes.c_ulonglong] * 2 + [_P]
+              + [ctypes.c_uint] * 4 + [_P],
 }
 
 
