@@ -859,6 +859,158 @@ def rng_draws(dev, key, n, report):
                 f"({p[1]:.1f} us host)")
 
 
+def clone_bounce(b):
+    """A copy of a ``kernels.bounce.Bounce`` whose every tensor it writes is
+    its own (the draws, the lights and K3's and K2's results are shared)."""
+    import copy
+
+    c = copy.copy(b)
+    c.pk = b.pk.clone()
+    c.rec = {k: v.clone() for k, v in b.rec.items()}
+    for name in ("sh_o", "sh_d", "sh_t", "need", "nee_val", "lk_d", "lk_t", "lk_need",
+                 "go_diffuse", "nee_mask", "lk_val", "march", "mode", "out_in_glass",
+                 "out_active", "out_in_light"):
+        x = getattr(b, name)
+        setattr(c, name, None if x is None else x.clone())
+    c.c = None
+    return c
+
+
+def bounce_bytes(stage, b):
+    """The bytes a shading kernel of csrc/bounce.cu reads and writes on b
+    with the random light (one shadow segment a ray), the buffers as they
+    stand before it runs (the rays taking each branch counted from them):
+    every ray's flags, and each active ray's state rows, hit record,
+    material row, draws and outputs."""
+    pk, n, rec = b.pk, b.n, b.rec
+    act = int((pk[13] > 0.5).sum())
+    if stage == "bounce_hit":
+        miss = int(((pk[13] > 0.5) & (rec["mat"] == 255)).sum())
+        emis = int(((pk[13] > 0.5) & (rec["mat"] == 15)).sum())
+        return n * 13 + act * 13 + miss * 52 + emis * 52
+    lk = 1 if b.has_lk else 0
+    if stage == "bounce_nee":
+        area = b.draws.g_nee is not None
+        march = int(b.march.sum())
+        per = 4 + 4 + 12 + 12 + 12 + 12 + 1 + 4 + 4 + 12 + 12 + 4 + 1 + 12 + 2 + (12 if area else 0)
+        per += lk * (4 + 4 + 12 + 4 + 1 + 12 + (12 if area else 0))
+        return n * 4 + (n - act) * (3 + lk) + act * per + march * 33
+    scatter_max = int(((pk[13] > 0.5) & (rec["mat"] >= 9) & (rec["mat"] <= 14)).sum())
+    per = 4 + 24 + 4 + 12 + 12 + 12 + 12 + 12 + 2 + 2 + 12 + 12 + 12 + 4 + 8 + 1
+    per += 12 * 4 + 4 + 4 + 2 + lk * (1 + 1 + 12 + 4 + 1)
+    return n * (8 + 4 * lk) + (n - act) * (2 + lk) + act * per + scatter_max * 12
+
+
+def bounce_stages(dev, scene, cfg, key, report, depths=(0, 1)):
+    """The bounce's shading kernels (csrc/bounce.cu) at the 1080p frame's
+    shapes: each stage's buffers captured on bounces `depths` of the frame,
+    the kernel held bit for bit to its plain version (``kernels.bounce``
+    ``*_plain``) on a copy of them, and timed per launch against it; a
+    stage writes its buffers in place, so each call first restores the
+    packed state (the copy timed alone and taken off both).  The whole
+    bounce is held bit for bit to ``_bounce_core_plain``.  One ``report``
+    entry a kernel: bounce 0's times, every bounce's under ``bounces``."""
+    import torch
+
+    from voxtracer_torch.core.rng import fold_in
+    from voxtracer_torch.kernels import bounce
+    from voxtracer_torch.render import integrator
+    from voxtracer_torch.render.camera import primary_rays
+
+    n = cfg.width * cfg.height
+    py, px = torch.meshgrid(torch.arange(cfg.height, dtype=torch.float32, device=dev) + 0.5,
+                            torch.arange(cfg.width, dtype=torch.float32, device=dev) + 0.5,
+                            indexing="ij")
+    o, d = primary_rays(scene.camera, cfg.width, cfg.height, px.reshape(-1), py.reshape(-1))
+    zero3 = tuple(torch.zeros(n, device=dev) for _ in range(3))
+    st = dict(o=integrator.cpack(o), d=integrator.cpack(d),
+              tp=tuple(torch.ones(n, device=dev) for _ in range(3)), rad=zero3,
+              in_glass=torch.zeros(n, dtype=torch.bool, device=dev),
+              active=torch.ones(n, dtype=torch.bool, device=dev), sky_tp=zero3,
+              sky_d=integrator.cpack(d))
+    stage_of = {"bounce_hit": (bounce.hit, bounce.hit_plain),
+                "bounce_nee": (bounce.nee, bounce.nee_plain),
+                "bounce_continue": (bounce.continue_, bounce.continue_plain)}
+    entries = {name: [] for name in stage_of}
+    for depth in range(max(depths) + 1):
+        bkey = fold_in(key, depth)
+        captured = {}
+
+        def capture(name):
+            def run(b):
+                captured[name] = clone_bounce(b)
+                stage_of[name][0](b)
+            return run
+
+        got = integrator._bounce_core_staged(
+            scene, cfg, st, bkey, stages=bounce.Stages(*(capture(k) for k in stage_of)))
+        want = integrator._bounce_core_plain(scene, cfg, st, bkey)
+        for k in ("o", "d", "tp", "rad", "sky_tp", "sky_d", "in_glass", "active"):
+            for x, y in zip(got[k] if isinstance(got[k], tuple) else (got[k],),
+                            want[k] if isinstance(want[k], tuple) else (want[k],)):
+                check(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                                  y.view(torch.int32) if y.is_floating_point() else y),
+                      f"bounce {depth}: the kernels' {k} is not the plain bounce's")
+        if depth in depths:
+            for name, (kern_fn, plain_fn) in stage_of.items():
+                b0 = captured[name]
+                bk, bp = clone_bounce(b0), clone_bounce(b0)
+                kern_fn(bk)
+                plain_fn(bp)
+                act = b0.pk[13] > 0.5
+                outs = {"pk": (bk.pk, bp.pk, None)}
+                if name == "bounce_hit":
+                    outs.update(march=(bk.march, bp.march, None), mode=(bk.mode, bp.mode, None))
+                elif name == "bounce_nee":
+                    for f in ("t", "nx", "ny", "nz"):
+                        outs[f] = (bk.rec[f], bp.rec[f], None)
+                    for f in ("need", "go_diffuse", "nee_mask"):
+                        outs[f] = (getattr(bk, f), getattr(bp, f), None)
+                    outs.update(sh_o=(bk.sh_o, bp.sh_o, act[:, None]),
+                                sh_d=(bk.sh_d, bp.sh_d, act[:, None]),
+                                sh_t=(bk.sh_t, bp.sh_t, act),
+                                nee_val=(bk.nee_val, bp.nee_val, act[None]))
+                else:
+                    outs.update(in_glass=(bk.out_in_glass, bp.out_in_glass, None),
+                                active=(bk.out_active, bp.out_active, None))
+                for f, (x, y, m) in outs.items():
+                    if x.is_floating_point():
+                        x, y = x.view(torch.int32), y.view(torch.int32)
+                    if m is not None:
+                        x, y = torch.where(m, x, 0), torch.where(m, y, 0)
+                    check(torch.equal(x, y), f"{name}, bounce {depth}: {f} is not the plain "
+                                             "version's bit for bit")
+                work, pk0 = clone_bounce(b0), b0.pk
+                restore = per_launch(lambda: work.pk.copy_(pk0))
+
+                def call(fn, work=work, pk0=pk0):
+                    work.pk.copy_(pk0)
+                    fn(work)
+
+                kern = per_launch(functools.partial(call, kern_fn))
+                plain = per_launch(functools.partial(call, plain_fn), windows=3)
+                kern = (kern[0] - restore[0], kern[1])
+                plain = (plain[0] - restore[0], plain[1])
+                bnd = bound(bounce_bytes(name, b0), 0)
+                entries[name].append(dict(bounce=depth, active=int(act.sum()), ms=kern[0],
+                                          host_us=kern[1], plain_ms=plain[0],
+                                          plain_host_us=plain[1], bound_ms=bnd[0],
+                                          restore_ms=restore[0], kern=kern, plain=plain,
+                                          bnd=bnd))
+                log(f"    {name} bounce {depth} ({int(act.sum())} of {n} rays active): kernel "
+                    f"{kern[0]:.4f} ms ({kern[1]:.1f} us host) = {bnd[0] / kern[0]:.0%} of "
+                    f"bound {bnd[0]:.4f} ms (bytes), plain {plain[0]:.4f} ms ({plain[1]:.1f} us "
+                    f"host); the state's restore {restore[0]:.4f} ms taken off both")
+        st = want
+    for name, es in entries.items():
+        e = es[0]
+        report(name, "voxtracer_torch/csrc/bounce.cu",
+               "none: XLA's fused elementwise ops of voxtracer/render/integrator.py _bounce_core",
+               0.0, e["kern"], e["plain"], e["bnd"], None,
+               bounces=[{k: v for k, v in x.items() if k not in ("kern", "plain", "bnd")}
+                        for x in es])
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
@@ -872,7 +1024,8 @@ def max_err(a, b):
 def plain_versions(chunked=False):
     """Swap the plain versions in for the kernels in every binding the
     port reaches them through: the integrator's (which every renderer,
-    render/reproject.py included, uses), the relaxed march's traversal,
+    render/reproject.py included, uses; its path bounce's shading takes
+    the plain ops), the relaxed march's traversal,
     the lookup module's own names (which its autograd Function calls) and
     the random streams' ``draw`` (which every draw of core/rng.py calls).
     chunked: the integrator's K1/K2 calls go through ``plain_traversal``
@@ -888,7 +1041,8 @@ def plain_versions(chunked=False):
     def plain_draw(*args, plain, **kw):
         return plain()
 
-    swaps = [(integrator, "traverse", chunked_traversal if chunked else traverse.traverse_plain),
+    swaps = [(integrator, "_bounce_core", integrator._bounce_core_plain),
+             (integrator, "traverse", chunked_traversal if chunked else traverse.traverse_plain),
              (integrator, "exit_march", traverse.exit_march_plain),
              (integrator, "lookup_rows", lookup.lookup_rows_plain),
              (volumetric, "traverse", traverse.traverse_plain),
@@ -2486,6 +2640,7 @@ def main(argv=None) -> int:
     from voxtracer_torch.core.types import GLASS, MAT_NONE, SMOKE_LOW_DENSITY, SMOKE_PLAYER
     from voxtracer_torch.diff import train, volumetric
     from voxtracer_torch.kernels import build, lookup, probes, traverse
+    from voxtracer_torch.kernels import bounce as bounce_kernel
     from voxtracer_torch.kernels import rng as rng_kernel
     from voxtracer_torch.kernels.dda import BIG, EXIT_GLASS, EXIT_SMOKE
     from voxtracer_torch.kernels.dda_occ import entry_t
@@ -2558,13 +2713,14 @@ def main(argv=None) -> int:
             f"{bnd[3]:.4f} ms), library {lib_txt} ({smi})")
 
     def reset_counts():
-        for c in (traverse.launches, lookup.launches, probes.launches, rng_kernel.launches):
+        for c in (traverse.launches, lookup.launches, probes.launches, rng_kernel.launches,
+                  bounce_kernel.launches):
             for kk in c:
                 c[kk] = 0
 
     def counts():
         return dict(traverse.launches, **lookup.launches, **probes.launches,
-                    **rng_kernel.launches)
+                    **rng_kernel.launches, **bounce_kernel.launches)
 
     def time_traversal(label, mode, args, plain_too=False, with_base=True):
         """K1 or K2 on one call: held against the plain version; then per
@@ -2678,6 +2834,9 @@ def main(argv=None) -> int:
     # the random streams at the frames' shapes
     rng_draws(dev, key, n, report)
 
+    # the bounce's shading kernels at the frame's shapes (bounces 0 and 1)
+    bounce_stages(dev, scene, cfg, key, report)
+
     # ---- 4 + 5. the forward half of the main path, counted: 1080p
     # monu-like, then media
     reset_counts()
@@ -2688,8 +2847,10 @@ def main(argv=None) -> int:
     check(bool(torch.isfinite(img).all()), "1080p image has non-finite values")
     check(0.02 < mean < 10.0, f"1080p image mean {mean}")
     after_monu = counts()
-    for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows"):
+    for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows", "bounce_hit",
+               "bounce_nee", "bounce_continue"):
         check(after_monu[kk] > 0, f"{kk} not launched by the 1080p frame")
+    check(after_monu["bounce_plain"] == 0, "the 1080p frame took the plain bounce")
     log(f"[4] 1080p path frame: mean {mean:.4f}; launches {after_monu}")
 
     mimg = integrator.render_tiled(mscene, mcfg, key, 1, 1)

@@ -3,8 +3,9 @@
 Each test builds the kernels (nvcc, csrc/) on first use, launches one on
 CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
-lookup rows, the probes' results and the random streams' float bits
-identical, the lookup's backward per entry within
+lookup rows, the probes' results, the random streams' float bits and
+the path bounce's shading kernels' states and frames identical (held to
+the plain bounce, ``integrator._bounce_core_plain``), the lookup's backward per entry within
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
 atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
@@ -24,6 +25,7 @@ package, so it runs on a machine with the card and PyTorch alone:
     python -m pytest tests/test_torch_gpu.py -q --noconftest -p no:cacheprovider
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -44,6 +46,7 @@ from voxtracer_torch.kernels.dda_occ import traverse_occ
 from voxtracer_torch.scene.instances import VolumeSpec, build_volumes
 from voxtracer_torch.core import rng
 from voxtracer_torch.core.rng import fold_in, make_key
+from voxtracer_torch.kernels import bounce as bounce_kernel
 from voxtracer_torch.kernels import rng as rng_kernel
 from voxtracer_torch.render import integrator, reproject
 from voxtracer_torch.scene.presets import glass_sphere_box, media_path, monu_like_path
@@ -1175,3 +1178,196 @@ def test_rng_kernel_refuses_what_it_does_not_take(cuda):
     assert rng_kernel.launches == before
     with pytest.raises(ValueError, match="lane indices"):
         rng.threefry_uniform(make_key(0), (4, 3), cuda, (torch.arange(5, device=cuda), 9), 0)
+
+
+# ---- the path bounce's shading kernels (csrc/bounce.cu) against the plain
+# bounce (integrator._bounce_core_plain) on the same CUDA state, bit for bit
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bounce_state(a, b, what):
+    for k in ("o", "d", "tp", "rad", "sky_tp", "sky_d", "in_glass", "active", "in_light"):
+        assert (k in a) == (k in b), f"{what}: {k}"
+        if k in a:
+            xs = a[k] if isinstance(a[k], tuple) else (a[k],)
+            ys = b[k] if isinstance(b[k], tuple) else (b[k],)
+            for c, (x, y) in enumerate(zip(xs, ys)):
+                assert torch.equal(_bits(x), _bits(y)), f"{what}: {k}[{c}] differs"
+
+
+def _light_kill_media(width, height):
+    """The media scene with its smoke volume first (the light kill looks
+    at volume 0) and the light kill on."""
+    from voxtracer_torch.scene.presets import media_specs
+
+    scene, cfg = media_path(width, height, bounces=4)
+    specs = media_specs()
+    scene = dataclasses.replace(scene, volumes=build_volumes(specs[-1:] + specs[:-1]))
+    return scene, dataclasses.replace(cfg, detect_light_kill=True, light_kill_threshold=0.01)
+
+
+def _all_lights(scene):
+    """Every light type, the directional one lit."""
+    return dataclasses.replace(scene, lights=make_lights(
+        point=((0.0, 3.0, -2.0, 6.0, 6.0, 6.0), (1.0, 2.0, 1.0, 2.0, 1.0, 0.5)),
+        spot=((-1.0, 2.5, -1.0, 0.3, -0.9, 0.3, 4.0, 4.0, 3.0, 0.6),),
+        area=((0.5, 2.0, -1.5, 3.0, 3.0, 3.0, 2.0, 0.4), (-0.5, 1.5, 0.5, 1.0, 2.0, 1.0, 1.0, 0.2)),
+        directional=((0.3, -1.0, 0.2), (0.8, 0.7, 0.6))))
+
+
+def _bounce_case(name, dev):
+    """(scene, cfg, lanes) of one bounce test, at 128x64."""
+    if name in ("det", "det_kill"):
+        scene, cfg = (_light_kill_media(128, 64) if name == "det_kill"
+                      else media_path(128, 64, bounces=4))
+        return (_all_lights(scene).to(dev), dataclasses.replace(cfg, deterministic_lights=True),
+                None)
+    if name == "media":
+        scene, cfg = media_path(128, 64, bounces=4)
+        return scene.to(dev), cfg, None
+    if name == "media_kill":
+        scene, cfg = _light_kill_media(128, 64)
+        return scene.to(dev), cfg, None
+    scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=4)
+    lanes = None
+    if name == "lights":
+        scene = _all_lights(scene)
+    elif name == "threefry":
+        cfg = dataclasses.replace(cfg, rng="threefry")
+    elif name == "lanes":
+        lanes = (1000, 3 * 8192)
+    return scene.to(dev), cfg, lanes
+
+
+@pytest.mark.parametrize("name", ["monu", "media", "media_kill", "lights", "threefry", "lanes",
+                                  "det", "det_kill"])
+def test_bounce_kernels_are_the_plain_bounce(cuda, name):
+    """Every bounce of a 128x64 frame, one at a time: the three kernels, and
+    their plain versions between the same traversals, give the plain
+    bounce's state bit for bit (every material class, K3, each light type,
+    the light kill, threefry draws, a window of lanes, the deterministic
+    all-lights NEE with area samples, with and without the light kill)."""
+    scene, cfg, lanes = _bounce_case(name, cuda)
+    py, px = torch.meshgrid(torch.arange(cfg.height, dtype=torch.float32, device=cuda) + 0.5,
+                            torch.arange(cfg.width, dtype=torch.float32, device=cuda) + 0.5,
+                            indexing="ij")
+    o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px.reshape(-1),
+                                   py.reshape(-1))
+    n = o.shape[0]
+    zero3 = tuple(torch.zeros(n, device=cuda) for _ in range(3))
+    st = dict(o=integrator.cpack(o), d=integrator.cpack(d),
+              tp=tuple(torch.ones(n, device=cuda) for _ in range(3)), rad=zero3,
+              in_glass=torch.zeros(n, dtype=torch.bool, device=cuda),
+              active=torch.ones(n, dtype=torch.bool, device=cuda), sky_tp=zero3,
+              sky_d=integrator.cpack(d))
+    if cfg.detect_light_kill:
+        st["in_light"] = torch.zeros(n, dtype=torch.bool, device=cuda)
+    before = dict(bounce_kernel.launches)
+    marched = traverse.launches["exit_march"]
+    bounces = 0
+    for depth in range(cfg.max_bounces + 1):
+        if not bool(st["active"].any()):
+            break
+        bounces += 1
+        bkey = fold_in(make_key(7), depth)
+        want = integrator._bounce_core_plain(scene, cfg, st, bkey, lanes)
+        got = integrator._bounce_core(scene, cfg, st, bkey, lanes)
+        _same_bounce_state(got, want, f"{name} bounce {depth}")
+        staged = integrator._bounce_core_staged(scene, cfg, st, bkey, lanes,
+                                                stages=bounce_kernel.PLAIN)
+        _same_bounce_state(staged, want, f"{name} bounce {depth}, plain stages")
+        st = want
+    moved = {k: bounce_kernel.launches[k] - before[k] for k in before}
+    assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] == bounces
+    assert moved["bounce_plain"] == 0
+    if name.startswith(("media", "det")):
+        assert traverse.launches["exit_march"] > marched
+    if name.endswith("kill"):
+        assert bool(st["in_light"].any())
+
+
+@contextlib.contextmanager
+def _plain_bounce():
+    """The plain bounce swapped in for the kernels' (the traversals, the
+    lookups and the draws keep their kernels)."""
+    kept = integrator._bounce_core
+    integrator._bounce_core = integrator._bounce_core_plain
+    try:
+        yield
+    finally:
+        integrator._bounce_core = kept
+
+
+def _bounce_frame(run):
+    """run() through the bounce kernels and through the plain bounce, bit
+    for bit -> (the image, the bounce counters' moves)."""
+    before = dict(bounce_kernel.launches)
+    got = run()
+    moved = {k: bounce_kernel.launches[k] - before[k] for k in before}
+    with _plain_bounce():
+        want = run()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(_bits(g), _bits(w))
+    return got, moved
+
+
+@pytest.mark.parametrize("frame", ["monu_512x256", "media_128x64", "city_128x64_reorder",
+                                   "monu_compact4", "light_kill"])
+def test_bounce_kernel_frames_are_the_plain_frames(cuda, frame):
+    """Whole frames on every bounce loop: the plain one (monu, media: K3),
+    the reordered one over the city's 111 volumes, the compacted one, and
+    the light kill's flags; each bit for bit, each kernel launched once a
+    bounce (a traced chunk)."""
+    from voxtracer_torch.scene.presets import city_xl_like_path
+
+    if frame == "monu_512x256":
+        scene, cfg = monu_like_path(512, 256, bounces=4)
+    elif frame == "media_128x64":
+        scene, cfg = media_path(128, 64, bounces=4)
+    elif frame == "city_128x64_reorder":
+        scene, cfg = city_xl_like_path(128, 64)
+        cfg = dataclasses.replace(cfg, compact_min=1)
+        assert integrator.path_loop(scene, cfg, 128 * 64) == "reorder"
+    elif frame == "monu_compact4":
+        scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=4)
+        cfg = dataclasses.replace(cfg, compact_chunks=4, compact_min=1)
+    else:
+        scene, cfg = _light_kill_media(128, 64)
+    scene = scene.to(cuda)
+    if frame == "light_kill":
+        o, d = integrator.primary_rays(
+            scene.camera, cfg.width, cfg.height,
+            *(g.reshape(-1) + 0.5 for g in reversed(torch.meshgrid(
+                torch.arange(cfg.height, dtype=torch.float32, device=cuda),
+                torch.arange(cfg.width, dtype=torch.float32, device=cuda), indexing="ij"))))
+
+        def run():
+            rad, aux = integrator.trace_path(scene, cfg, o, d, make_key(0), return_aux=True)
+            return rad, aux["in_light"]
+
+        (img, flags), moved = _bounce_frame(run)
+        assert bool(flags.any())
+    else:
+        img, moved = _bounce_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1,
+                                                                   1))
+    assert bool(torch.isfinite(img).all()) and 0.01 < float(img.mean()) < 10.0
+    assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] > 0
+    assert moved["bounce_plain"] == 0
+    if frame == "monu_compact4":
+        assert moved["bounce_hit"] > cfg.max_bounces + 1  # a launch a traced chunk
+
+
+def test_deterministic_lights_frame_is_the_plain_frame(cuda):
+    """cfg.deterministic_lights on the monu-like 128x64 path frame with every
+    light type: the kernels shade each bounce (one K2 call over every
+    light's segments), bit for bit, none on the plain ops."""
+    scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=2)
+    cfg = dataclasses.replace(cfg, deterministic_lights=True)
+    scene = _all_lights(scene).to(cuda)
+    img, moved = _bounce_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1))
+    assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] > 0
+    assert moved["bounce_plain"] == 0
+    assert 0.01 < float(img.mean()) < 10.0

@@ -91,6 +91,7 @@ _SIGNATURES = {
     "vt_alu_loop": [_P, _P, ctypes.c_longlong, _I, _P, _P],
     "vt_rng": [_I, _I, _P] + [ctypes.c_uint] * 3 + [ctypes.c_ulonglong] * 2 + [_P]
               + [ctypes.c_uint] * 4 + [_P],
+    "vt_bounce": [_I, _P, _P],
 }
 
 

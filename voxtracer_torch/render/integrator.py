@@ -7,6 +7,8 @@ on bounces where a ray is inside glass or smoke, the exit march.  Every
 material lobe is computed for all rays and selected with masks, as the
 JAX package does.  Per-ray vectors travel as component tuples (x, y, z)
 of [N] tensors; the public functions take and return [N, 3] or [H, W, 3].
+On the card a path bounce's shading runs in the three kernels of
+csrc/bounce.cu, on the packed path state (``_bounce_core``).
 
 Modes: "primary" (flat albedo at the first hit), "whitted" (the
 deterministic NEE sum with perfect mirrors and Fresnel-split glass, run
@@ -31,7 +33,7 @@ from voxtracer_torch.core.rng import (fold_in, hash_normal, hash_uniform, threef
 from voxtracer_torch.core.types import (EMISSIVE, GLASS, MAT_NONE, METAL_HIGH,
                                         METAL_LOW, SMOKE_LOW_DENSITY,
                                         SMOKE_PLAYER, Scene)
-from voxtracer_torch.kernels import dda
+from voxtracer_torch.kernels import bounce, dda
 from voxtracer_torch.kernels.dda import EXIT_GLASS, EXIT_SMOKE
 from voxtracer_torch.kernels.dda_occ import entry_t
 from voxtracer_torch.kernels.lookup import lookup_rows
@@ -517,7 +519,83 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey, lanes=None):
     and continuation.  Inactive rays pass through unchanged.  With
     cfg.detect_light_kill the state carries the light-kill flags,
     ``in_light``, ORed over the bounces.  The rays draw their samples at
-    `lanes` (as in ``core.rng.counters``; None: lanes 0 .. n-1)."""
+    `lanes` (as in ``core.rng.counters``; None: lanes 0 .. n-1).
+
+    The state's device picks the path: a CUDA state shades in the three
+    kernels of csrc/bounce.cu (``_bounce_core_staged``), a CPU state by
+    the plain ops (``_bounce_core_plain``); both give the same bits."""
+    if st["active"].is_cuda:
+        return _bounce_core_staged(scene, cfg, st, bkey, lanes)
+    return _bounce_core_plain(scene, cfg, st, bkey, lanes)
+
+
+def _material_rows(scene: Scene, mat):
+    """One [256, 6] row lookup for all material properties -> [n, 6]:
+    albedo, roughness, emissive, ior."""
+    m = scene.materials
+    mtab = torch.cat([m.albedo, m.roughness[:, None], m.emissive[:, None],
+                      m.ior[:, None]], dim=1)
+    return lookup_rows(mtab, mat)
+
+
+def _bounce_core_staged(scene: Scene, cfg: RenderConfig, st, bkey, lanes=None,
+                        stages=bounce.KERNELS):
+    """``_bounce_core`` as K1 and K4, the stage ``hit``, K3 where a ray
+    marches, ``nee``, K2 on every shadow segment (twice with the light kill)
+    and ``continue_``
+    (``kernels.bounce``; `stages` = ``bounce.PLAIN`` runs their plain
+    versions, on any device).  The draws come first: they depend on bkey
+    and the lanes alone.  The packed state ``st["pk"]`` (a column window of
+    a wider one works) is shaded in place; a state without one is packed
+    first.  -> the state dict, its rows views of the packed state."""
+    n, dev = st["active"].shape[0], st["active"].device
+    pk = st.get("pk")
+    if pk is None:
+        pk = _pack_path(st, torch.zeros(n, dtype=F32, device=dev))
+    L, det = scene.lights, cfg.deterministic_lights
+    nee_key = fold_in(bkey, 2)
+    lk_key = fold_in(bkey, 9) if cfg.detect_light_kill else None
+
+    def area_samples(key):
+        """_det_illumination's area-light samples, light by light."""
+        if key is None or not det or not L.n_area * cfg.num_area_samples:
+            return None
+        return torch.stack([_nrml(cfg, fold_in(key, 1000 + i), 200 + k, (3, n), dev, lanes)
+                            for i in range(L.n_area) for k in range(cfg.num_area_samples)])
+
+    def random_light(key):
+        """illumination's random branch's draws: the pick and the area sample."""
+        if key is None or det:
+            return None, None
+        return (_uni(cfg, key, 7, (n,), dev, lanes),
+                _nrml(cfg, key, 11, (3, n), dev, lanes) if L.n_area else None)
+
+    draws = bounce.Draws(
+        _uni(cfg, bkey, 1, (n,), dev, lanes), _uni(cfg, bkey, 3, (3, n), dev, lanes),
+        _nrml(cfg, bkey, 4, (3, n), dev, lanes), _uni(cfg, bkey, 5, (n,), dev, lanes),
+        _uni(cfg, bkey, 6, (2, n), dev, lanes), _nrml(cfg, bkey, 8, (3, n), dev, lanes),
+        *random_light(nee_key), *random_light(lk_key), area_samples(nee_key),
+        area_samples(lk_key))
+    o3, d3 = pk[0:3].T, pk[3:6].T
+    rec = find_nearest_world(scene, o3, d3, st["active"])
+    b = bounce.Bounce(pk, rec, _material_rows(scene, rec["mat"]), draws, L, cfg)
+    stages.hit(b)
+    # the medium march, skipped on bounces where no ray is inside a medium
+    if bool(b.march.any()):
+        in_vol, t_exit, nrm_exit = material_exit_world(
+            scene, o3.contiguous(), d3.contiguous(), rec["vol"], b.mode, b.march)
+        b.exit = (in_vol, t_exit, *nrm_exit)
+    stages.nee(b)
+    b.occ = is_occluded_world(scene, b.sh_o, b.sh_d, b.sh_t, b.need)
+    if cfg.detect_light_kill:
+        b.lk_occ = is_occluded_world(scene, b.sh_o, b.lk_d, b.lk_t, b.lk_need)
+    stages.continue_(b)
+    return b.state()
+
+
+def _bounce_core_plain(scene: Scene, cfg: RenderConfig, st, bkey, lanes=None):
+    """``_bounce_core`` by plain torch ops: the CPU path and the kernels'
+    oracle on the card."""
     n, dev = st["o"][0].shape[0], st["o"][0].device
     one3 = tuple(torch.ones(n, dtype=F32, device=dev) for _ in range(3))
     o, d, active = st["o"], st["d"], st["active"]
@@ -534,11 +612,7 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, st, bkey, lanes=None):
     rad = st["rad"]
     active = active & ~miss
 
-    # one [256, 6] row lookup for all material properties
-    m = scene.materials
-    mtab = torch.cat([m.albedo, m.roughness[:, None], m.emissive[:, None],
-                      m.ior[:, None]], dim=1)
-    mrow = lookup_rows(mtab, mat)
+    mrow = _material_rows(scene, mat)
     alb = (mrow[:, 0], mrow[:, 1], mrow[:, 2])
     rough, emis, ior = mrow[:, 3], mrow[:, 4], mrow[:, 5]
 
@@ -690,10 +764,11 @@ def _pack_path(st, pix):
 
 
 def _unpack_path(pk):
-    """[21 or 22, n] -> (the state dict, the ray's first lane)."""
+    """[21 or 22, n] -> (the state dict, the ray's first lane); the dict's
+    ``pk`` is pk itself, which a CUDA bounce shades in place."""
     c = pk.unbind(0)
     st = dict(o=c[0:3], d=c[3:6], tp=c[6:9], rad=c[9:12], in_glass=c[12] > 0.5,
-              active=c[_PK_ACTIVE] > 0.5, sky_tp=c[15:18], sky_d=c[18:21])
+              active=c[_PK_ACTIVE] > 0.5, sky_tp=c[15:18], sky_d=c[18:21], pk=pk)
     if len(c) > _PK_ROWS:
         st["in_light"] = c[_PK_ROWS] > 0.5
     return st, c[_PK_PIX]
@@ -767,11 +842,13 @@ def _trace_chunks(scene: Scene, cfg: RenderConfig, pk, bkey, live_end: int, ch: 
     while j * ch < live_end:
         lo, hi = max(j * ch, first), min((j + 1) * ch, first + n)
         if lo < hi:
-            st, pix = _unpack_path(pk[:, lo - first:hi - first])
+            view = pk[:, lo - first:hi - first]
+            st, pix = _unpack_path(view)
             at = None if hi - lo == ch else (lo - j * ch, ch)
             with span("vt.bounce"):
                 st = _bounce_core(scene, cfg, st, fold_in(bkey, j), at)
-            pk[:, lo - first:hi - first] = _pack_path(st, pix)
+            if st.get("pk") is not view:  # the plain ops return a new state
+                view.copy_(_pack_path(st, pix))
         j += 1
     return pk
 
