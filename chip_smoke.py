@@ -908,7 +908,8 @@ def bounce_stages(dev, scene, cfg, key, report, depths=(0, 1)):
     ``*_plain``) on a copy of them, and timed per launch against it; a
     stage writes its buffers in place, so each call first restores the
     packed state (the copy timed alone and taken off both).  The whole
-    bounce is held bit for bit to ``_bounce_core_plain``.  One ``report``
+    bounce is held bit for bit to the bounce on the plain stages
+    (``bounce.PLAIN``) on a copy of the packed state.  One ``report``
     entry a kernel: bounce 0's times, every bounce's under ``bounces``."""
     import torch
 
@@ -922,12 +923,7 @@ def bounce_stages(dev, scene, cfg, key, report, depths=(0, 1)):
                             torch.arange(cfg.width, dtype=torch.float32, device=dev) + 0.5,
                             indexing="ij")
     o, d = primary_rays(scene.camera, cfg.width, cfg.height, px.reshape(-1), py.reshape(-1))
-    zero3 = tuple(torch.zeros(n, device=dev) for _ in range(3))
-    st = dict(o=integrator.cpack(o), d=integrator.cpack(d),
-              tp=tuple(torch.ones(n, device=dev) for _ in range(3)), rad=zero3,
-              in_glass=torch.zeros(n, dtype=torch.bool, device=dev),
-              active=torch.ones(n, dtype=torch.bool, device=dev), sky_tp=zero3,
-              sky_d=integrator.cpack(d))
+    pk, active = integrator._first_path(cfg, o, d)
     stage_of = {"bounce_hit": (bounce.hit, bounce.hit_plain),
                 "bounce_nee": (bounce.nee, bounce.nee_plain),
                 "bounce_continue": (bounce.continue_, bounce.continue_plain)}
@@ -942,15 +938,14 @@ def bounce_stages(dev, scene, cfg, key, report, depths=(0, 1)):
                 stage_of[name][0](b)
             return run
 
-        got = integrator._bounce_core_staged(
-            scene, cfg, st, bkey, stages=bounce.Stages(*(capture(k) for k in stage_of)))
-        want = integrator._bounce_core_plain(scene, cfg, st, bkey)
-        for k in ("o", "d", "tp", "rad", "sky_tp", "sky_d", "in_glass", "active"):
-            for x, y in zip(got[k] if isinstance(got[k], tuple) else (got[k],),
-                            want[k] if isinstance(want[k], tuple) else (want[k],)):
-                check(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
-                                  y.view(torch.int32) if y.is_floating_point() else y),
-                      f"bounce {depth}: the kernels' {k} is not the plain bounce's")
+        want = pk.clone()
+        want_active = integrator._bounce_core(scene, cfg, want, active, bkey,
+                                              stages=bounce.PLAIN)
+        active = integrator._bounce_core(scene, cfg, pk, active, bkey,
+                                         stages=bounce.Stages(*(capture(k) for k in stage_of)))
+        check(torch.equal(pk.view(torch.int32), want.view(torch.int32))
+              and torch.equal(active, want_active),
+              f"bounce {depth}: the kernels' state is not the plain stages' bit for bit")
         if depth in depths:
             for name, (kern_fn, plain_fn) in stage_of.items():
                 b0 = captured[name]
@@ -1001,7 +996,6 @@ def bounce_stages(dev, scene, cfg, key, report, depths=(0, 1)):
                     f"{kern[0]:.4f} ms ({kern[1]:.1f} us host) = {bnd[0] / kern[0]:.0%} of "
                     f"bound {bnd[0]:.4f} ms (bytes), plain {plain[0]:.4f} ms ({plain[1]:.1f} us "
                     f"host); the state's restore {restore[0]:.4f} ms taken off both")
-        st = want
     for name, es in entries.items():
         e = es[0]
         report(name, "voxtracer_torch/csrc/bounce.cu",
@@ -1025,14 +1019,14 @@ def plain_versions(chunked=False):
     """Swap the plain versions in for the kernels in every binding the
     port reaches them through: the integrator's (which every renderer,
     render/reproject.py included, uses; its path bounce's shading takes
-    the plain ops), the relaxed march's traversal,
+    the plain stages), the relaxed march's traversal,
     the lookup module's own names (which its autograd Function calls) and
     the random streams' ``draw`` (which every draw of core/rng.py calls).
     chunked: the integrator's K1/K2 calls go through ``plain_traversal``
     (the active rays only, at most PLAIN_PAIRS pairs at a time), which a
     1080p frame over 111 volumes needs."""
     from voxtracer_torch.diff import volumetric
-    from voxtracer_torch.kernels import lookup, rng, traverse
+    from voxtracer_torch.kernels import bounce, lookup, rng, traverse
     from voxtracer_torch.render import integrator
 
     def chunked_traversal(*args, mode="nearest"):
@@ -1041,7 +1035,10 @@ def plain_versions(chunked=False):
     def plain_draw(*args, plain, **kw):
         return plain()
 
-    swaps = [(integrator, "_bounce_core", integrator._bounce_core_plain),
+    def plain_bounce(*args, _kept=integrator._bounce_core, **kw):
+        return _kept(*args, **kw, stages=bounce.PLAIN)
+
+    swaps = [(integrator, "_bounce_core", plain_bounce),
              (integrator, "traverse", chunked_traversal if chunked else traverse.traverse_plain),
              (integrator, "exit_march", traverse.exit_march_plain),
              (integrator, "lookup_rows", lookup.lookup_rows_plain),
@@ -2850,7 +2847,6 @@ def main(argv=None) -> int:
     for kk in ("traverse_nearest", "traverse_occluded", "lookup_rows", "bounce_hit",
                "bounce_nee", "bounce_continue"):
         check(after_monu[kk] > 0, f"{kk} not launched by the 1080p frame")
-    check(after_monu["bounce_plain"] == 0, "the 1080p frame took the plain bounce")
     log(f"[4] 1080p path frame: mean {mean:.4f}; launches {after_monu}")
 
     mimg = integrator.render_tiled(mscene, mcfg, key, 1, 1)
@@ -3543,8 +3539,8 @@ def main(argv=None) -> int:
             + " / ".join(f"{x:.4f}" for x in ms_r) + f" (sum {sum(ms_r):.4f}); reorder none "
             + " / ".join(f"{x:.4f}" for x in ms_n) + f" (sum {sum(ms_n):.4f}) ({smi})")
     del ncalls
-    # what one reorder costs: the sort key, the stable sort, the gather and
-    # the packing and unpacking, on the rays of the frame's second K1 call
+    # what one reorder costs: the sort key, the stable sort and the gather,
+    # on the rays of the frame's second K1 call
     o_, d_, _, act_ = [a for m_, a in ccalls if m_ == "nearest"][1][5:9]
     pk = torch.zeros((integrator._PK_ROWS, n), device=dev)
     pk[0:3], pk[3:6], pk[integrator._PK_ACTIVE] = o_.t(), d_.t(), act_.float()
@@ -3555,9 +3551,7 @@ def main(argv=None) -> int:
     reorder_ms = {name: per_launch(f)[0] for name, f in (
         ("key", lambda: integrator._morton_key(pk, wlo, wspan)),
         ("stable sort", lambda: torch.sort(mkey, stable=True)),
-        ("gather", lambda: pk.index_select(1, mperm)),
-        ("pack + unpack", lambda: integrator._pack_path(integrator._unpack_path(pk)[0],
-                                                        pk[integrator._PK_PIX])))}
+        ("gather", lambda: pk.index_select(1, mperm)))}
     log(f"[16] one reorder of {n} rays ({int(act_.sum())} active): "
         + ", ".join(f"{k_} {v_:.3f} ms" for k_, v_ in reorder_ms.items()) + f" ({smi})")
     pmin_ms = per_launch(lambda: [entry_t(p_.inv, p_.cube_min, o_, d_).amin(0)

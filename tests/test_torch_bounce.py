@@ -1,62 +1,62 @@
-"""The staged path bounce (``integrator._bounce_core_staged``) against the
-plain bounce (``_bounce_core_plain``) on the CPU.
+"""The port's path bounce (``integrator._bounce_core``) on the CPU,
+against the JAX package's.
 
 On the card the bounce's shading runs as the three kernels of
-csrc/bounce.cu; here their plain versions (``kernels.bounce.PLAIN``) run
-in the same order, between the same traversals, and must give the plain
-bounce's state bit for bit: one bounce at a time over every material
+csrc/bounce.cu; on any other device their plain versions
+(``kernels.bounce.PLAIN``) run in the same order, between the same
+traversals, on the same packed state.  Here each bounce of a frame is held
+to the JAX package's ``_bounce_core`` on the same state: every material
 class, the exit march, each light type, the light kill, threefry draws
-and a window of lanes, and whole frames on the plain, reordered and
-compacted loops.  A CPU frame launches no kernel; the kernels' wrapper
-refuses CPU tensors, its argument struct is the kernel's field for field,
-and no kernel name falls into a family of the benchmark's roofline."""
+and the deterministic lights; a window of lanes is held bit for bit to
+the same lanes of the whole wavefront.  Whole frames on the plain,
+reordered and compacted loops, with the light kill and the deterministic
+lights, are held to the JAX ``trace_path``.  A CPU frame launches no
+kernel; the kernels' wrapper refuses CPU tensors, its argument struct is
+the kernel's field for field, and no kernel name falls into a family of
+the benchmark's roofline.
+
+Both packages render the very same scene arrays (``scene_from_numpy``)
+and the JAX references run op by op (``disable_jit``: under jit XLA's
+CPU backend contracts multiply-adds, tests/test_torch_render.py).  Each
+state component is held by the path frames' rule
+(tests/test_torch_options.py): mean absolute difference <= 1e-4 and at
+most 1% of rays off by more than 1e-3; the flags are equal on at least
+99% of rays."""
 
 import dataclasses
 import pathlib
 import re
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from test_torch_options import _hold_path
+from test_torch_render import _flatten, _jax_scene
+from voxtracer.config import RenderConfig as JaxConfig
+from voxtracer.render import integrator as jax_integrator
+from voxtracer.scene.instances import VolumeSpec as JaxVolumeSpec
+from voxtracer.scene.instances import build_volumes as jax_build_volumes
+from voxtracer.scene.lights import make_lights as jax_make_lights
 from voxtracer_torch.core.rng import fold_in, make_key
 from voxtracer_torch.kernels import bounce
 from voxtracer_torch.render import integrator
-from voxtracer_torch.scene.instances import build_volumes
-from voxtracer_torch.scene.lights import make_lights
+from voxtracer_torch.scene.convert import scene_from_numpy
 from voxtracer_torch.scene.presets import media_path, media_specs, monu_like_path
 
 torch.set_num_threads(1)
 
 CSRC = pathlib.Path(integrator.__file__).resolve().parent.parent / "csrc" / "bounce.cu"
+# the packed state's component rows and flag rows
+VECTORS = dict(o=bounce.R_O, d=bounce.R_D, tp=bounce.R_TP, rad=bounce.R_RAD,
+               sky_tp=bounce.R_SKY_TP, sky_d=bounce.R_SKY_D)
+FLAGS = dict(in_glass=bounce.R_GL, active=bounce.R_ACT, in_light=bounce.R_LK)
 
 
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-
-def _same_state(a, b, what):
-    keys = ("o", "d", "tp", "rad", "sky_tp", "sky_d", "in_glass", "active", "in_light")
-    assert set(k for k in keys if k in a) == set(k for k in keys if k in b), what
-    for k in keys:
-        if k not in a:
-            continue
-        xs = a[k] if isinstance(a[k], tuple) else (a[k],)
-        ys = b[k] if isinstance(b[k], tuple) else (b[k],)
-        for c, (x, y) in enumerate(zip(xs, ys)):
-            assert torch.equal(_bits(x), _bits(y)), f"{what}: {k}[{c}] differs"
-
-
-def _start(o, d, cfg):
-    """trace_path's first state."""
-    n = o.shape[0]
-    zero3 = tuple(torch.zeros(n) for _ in range(3))
-    st = dict(o=integrator.cpack(o), d=integrator.cpack(d),
-              tp=tuple(torch.ones(n) for _ in range(3)), rad=zero3,
-              in_glass=torch.zeros(n, dtype=torch.bool), active=torch.ones(n, dtype=torch.bool),
-              sky_tp=zero3, sky_d=integrator.cpack(d))
-    if cfg.detect_light_kill:
-        st["in_light"] = torch.zeros(n, dtype=torch.bool)
-    return st
 
 
 def _rays(scene, cfg):
@@ -66,109 +66,176 @@ def _rays(scene, cfg):
                                    py.reshape(-1))
 
 
-def _all_lights(scene):
+def _both(jscene):
+    """A JAX scene -> (it on the device, the port's scene of its arrays)."""
+    return jax.tree.map(jnp.asarray, jscene), scene_from_numpy(_flatten(jscene), device="cpu")
+
+
+def _all_lights():
     """Every light type, the directional one lit."""
-    return dataclasses.replace(scene, lights=make_lights(
+    return jax_make_lights(
         point=((0.0, 3.0, -2.0, 6.0, 6.0, 6.0), (1.0, 2.0, 1.0, 2.0, 1.0, 0.5)),
         spot=((-1.0, 2.5, -1.0, 0.3, -0.9, 0.3, 4.0, 4.0, 3.0, 0.6),),
         area=((0.5, 2.0, -1.5, 3.0, 3.0, 3.0, 2.0, 0.4), (-0.5, 1.5, 0.5, 1.0, 2.0, 1.0, 1.0, 0.2)),
-        directional=((0.3, -1.0, 0.2), (0.8, 0.7, 0.6))))
+        directional=((0.3, -1.0, 0.2), (0.8, 0.7, 0.6)))
+
+
+def _media_kill(width, height):
+    """The media scene with its smoke volume first (the light kill looks
+    at volume 0) and the light kill on -> (JAX scene, cfg)."""
+    specs = [JaxVolumeSpec(**vars(s)) for s in media_specs()]
+    jscene = _jax_scene("media", width, height).replace(
+        volumes=jax_build_volumes(specs[-1:] + specs[:-1]))
+    cfg = media_path(width, height, bounces=2)[1]
+    return jscene, dataclasses.replace(cfg, detect_light_kill=True, light_kill_threshold=0.01)
 
 
 def _case(name):
-    if name in ("det", "det_kill"):
-        scene, cfg = _case("media_kill" if name == "det_kill" else "media")[:2]
-        return _all_lights(scene), dataclasses.replace(cfg, deterministic_lights=True), None
-    if name in ("media", "media_kill"):
-        scene, cfg = media_path(32, 32, bounces=4)
-        if name == "media_kill":
-            # the smoke volume first: the light kill looks at volume 0
-            specs = media_specs()
-            scene = dataclasses.replace(scene, volumes=build_volumes(specs[-1:] + specs[:-1]))
-            cfg = dataclasses.replace(cfg, detect_light_kill=True, light_kill_threshold=0.01)
-        return scene, cfg, None
-    scene, cfg = monu_like_path(32, 16, gridsize=16, bounces=4)
+    """-> (JAX scene, the port's scene of its arrays, cfg, lanes) of one
+    bounce test."""
     lanes = None
-    if name == "lights":
-        scene = _all_lights(scene)
-    elif name == "threefry":
-        cfg = dataclasses.replace(cfg, rng="threefry")
-    elif name == "lanes":
-        lanes = (96, 2048)
-    return scene, cfg, lanes
+    if name.startswith(("media", "det")):
+        if name.endswith("kill"):
+            jscene, cfg = _media_kill(32, 32)
+        else:
+            jscene, cfg = _jax_scene("media", 32, 32), media_path(32, 32, bounces=2)[1]
+        if name.startswith("det"):
+            jscene = jscene.replace(lights=_all_lights())
+            cfg = dataclasses.replace(cfg, deterministic_lights=True)
+    else:
+        jscene = _jax_scene("monu_like", 32, 32)
+        cfg = monu_like_path(32, 32, gridsize=16, bounces=2)[1]
+        if name == "lights":
+            jscene = jscene.replace(lights=_all_lights())
+        elif name == "threefry":
+            cfg = dataclasses.replace(cfg, rng="threefry")
+        elif name == "lanes":  # the 1,024-ray frame as lanes 96 .. 1,119 of 2,048
+            lanes = (96, 2048)
+    return (*_both(jscene), cfg, lanes)
+
+
+def _jax_state(pk):
+    """The packed state as the JAX package's state dict."""
+    c = [jnp.asarray(r.numpy()) for r in pk]
+    st = {k: tuple(c[r:r + 3]) for k, r in VECTORS.items()}
+    st.update({k: c[r] > 0.5 for k, r in FLAGS.items() if r < len(c)})
+    return st
+
+
+def _hold_state(pk, want, what):
+    """The packed state against a JAX state dict: each component by the
+    path frames' rule, each flag on at least 99% of rays."""
+    for k, r in VECTORS.items():
+        _hold_path(pk[r:r + 3].T.numpy(), np.stack([np.asarray(x) for x in want[k]], -1))
+    for k, r in FLAGS.items():
+        if r < pk.shape[0]:
+            same = ((pk[r] > 0.5).numpy() == np.asarray(want[k])).mean()
+            assert same >= 0.99, f"{what}: {k} equal on {same:.2%}"
+
+
+def _window_bounces(scene, cfg, lanes, key):
+    """Each bounce of the frame's rays as the window `lanes` = (first,
+    total) against the same lanes of a whole wavefront (the frame's rays
+    repeated, rolled to start at `first`), bit for bit -> the window's
+    (pk, the materials its active rays hit)."""
+    first, total = lanes
+    o, d = _rays(scene, cfg)
+    n = o.shape[0]
+    whole, active = integrator._first_path(
+        cfg, *(x.repeat(total // n, 1).roll(first, 0) for x in (o, d)))
+    pk, win_active = whole[:, first:first + n].clone(), active[first:first + n]
+    kinds = set()
+    for depth in range(cfg.max_bounces + 1):
+        if not bool(active.any()):
+            break
+        rec = integrator.find_nearest_world(scene, pk[0:3].T, pk[3:6].T, win_active)
+        kinds |= set(rec["mat"][win_active].tolist())
+        bkey = fold_in(key, depth)
+        active = integrator._bounce_core(scene, cfg, whole, active, bkey)
+        win_active = integrator._bounce_core(scene, cfg, pk, win_active, bkey, lanes)
+        assert torch.equal(_bits(pk), _bits(whole[:, first:first + n])), f"bounce {depth}"
+        assert torch.equal(win_active, active[first:first + n])
+    return pk, kinds
 
 
 @pytest.mark.parametrize("name", ["monu", "media", "media_kill", "lights", "threefry", "lanes",
                                   "det", "det_kill"])
-def test_staged_plain_bounce_is_the_plain_bounce(name):
-    """Each bounce of a frame: the plain stages between the traversals give
-    the plain bounce's state bit for bit."""
-    scene, cfg, lanes = _case(name)
-    o, d = _rays(scene, cfg)
-    st = _start(o, d, cfg)
+def test_bounce_matches_jax(name):
+    """Each bounce of a frame: the port's bounce (the plain stages between
+    the traversals, in place on the packed state) against the JAX
+    package's bounce on the same state.  The JAX bounce draws at lanes 0 ..
+    n-1: the window of lanes is held to the whole wavefront instead."""
+    jscene, scene, cfg, lanes = _case(name)
     key = make_key(7)
-    kinds = set()
-    for depth in range(cfg.max_bounces + 1):
-        if not bool(st["active"].any()):
-            break
-        bkey = fold_in(key, depth)
-        rec = integrator.find_nearest_world(scene, st["o"], st["d"], st["active"])
-        kinds |= set(rec["mat"][st["active"]].tolist())
-        want = integrator._bounce_core_plain(scene, cfg, st, bkey, lanes)
-        got = integrator._bounce_core_staged(scene, cfg, st, bkey, lanes, stages=bounce.PLAIN)
-        _same_state(got, want, f"{name} bounce {depth}")
-        st = want
+    if lanes is not None:
+        pk, kinds = _window_bounces(scene, cfg, lanes, key)
+    else:
+        jcfg = JaxConfig(**dataclasses.asdict(cfg))
+        o, d = _rays(scene, cfg)
+        pk, active = integrator._first_path(cfg, o, d)
+        kinds = set()
+        for depth in range(cfg.max_bounces + 1):
+            if not bool(active.any()):
+                break
+            rec = integrator.find_nearest_world(scene, pk[0:3].T, pk[3:6].T, active)
+            kinds |= set(rec["mat"][active].tolist())
+            with jax.disable_jit():
+                want = jax_integrator._bounce_core(jscene, jcfg, _jax_state(pk),
+                                                   jax.random.fold_in(jax.random.PRNGKey(7),
+                                                                      depth))
+            active = integrator._bounce_core(scene, cfg, pk, active, fold_in(key, depth))
+            assert torch.equal(active, pk[bounce.R_ACT] > 0.5)
+            _hold_state(pk, want, f"{name} bounce {depth}")
     assert len(kinds) >= 3, kinds
     if name.startswith(("media", "det")):
         assert kinds & {8} and kinds & set(range(9, 15)), kinds  # glass and smoke hits
     if name.endswith("kill"):
-        assert bool(st["in_light"].any())
+        assert bool((pk[bounce.R_LK] > 0.5).any())
 
 
 @pytest.mark.parametrize("loop", ["plain", "reorder", "compact", "reorder_chunks"])
-def test_staged_plain_frames_are_the_plain_frames(loop, monkeypatch):
-    """Whole frames with the staged bounce swapped in, in place on the packed
-    state (the reordered and compacted loops shade chunk views of it),
-    against the plain bounce."""
-    scene, cfg = monu_like_path(32, 16, gridsize=16, bounces=4)
+def test_frames_match_jax(loop):
+    """Whole media frames with the deterministic lights and the light kill
+    (the smoke volume first) on each bounce loop, the radiance and the
+    flags against the JAX ``trace_path``: the flags come back through the
+    compaction's and the reorder's undo."""
+    jscene, cfg = _media_kill(32, 32)
+    cfg = dataclasses.replace(cfg, deterministic_lights=True)
     if loop == "reorder":
         cfg = dataclasses.replace(cfg, bounce_reorder="always", compact_min=1)
     elif loop == "compact":
-        cfg = dataclasses.replace(cfg, compact_chunks=4, compact_min=1)
+        cfg = dataclasses.replace(cfg, compact_chunks=2, compact_min=1)
     elif loop == "reorder_chunks":
         cfg = dataclasses.replace(cfg, bounce_reorder="always", compact_min=1,
-                                  reorder_compact_chunks=4)
-    assert integrator.path_loop(scene, cfg, 512) == loop.split("_")[0]
+                                  reorder_compact_chunks=2)
+    jscene, scene = _both(jscene)
+    assert integrator.path_loop(scene, cfg, 1024) == loop.split("_")[0]
     o, d = _rays(scene, cfg)
-    key = make_key(3)
-    want = integrator.trace_path(scene, cfg, o, d, key)
+    rad, aux = integrator.trace_path(scene, cfg, o, d, make_key(3), return_aux=True)
+    with jax.disable_jit():
+        jrad, jaux = jax_integrator.trace_path(
+            jscene, JaxConfig(**dataclasses.asdict(cfg)), jnp.asarray(o.numpy()),
+            jnp.asarray(d.numpy()), jax.random.PRNGKey(3), return_aux=True)
+    _hold_path(rad.numpy(), jrad)
+    flags = aux["in_light"].numpy()
+    assert (flags == np.asarray(jaux["in_light"])).mean() >= 0.99
+    assert flags.any() and 0.01 < float(rad.mean()) < 10.0
 
-    def staged(scene, cfg, st, bkey, lanes=None):
-        return integrator._bounce_core_staged(scene, cfg, st, bkey, lanes, stages=bounce.PLAIN)
 
-    monkeypatch.setattr(integrator, "_bounce_core", staged)
-    got = integrator.trace_path(scene, cfg, o, d, key)
-    assert torch.equal(_bits(got), _bits(want))
-    assert 0.01 < float(want.mean()) < 10.0
-
-
-def test_cpu_frame_launches_no_bounce_kernel(monkeypatch):
-    """A CPU frame takes the plain bounce and leaves every counter at 0."""
+def test_cpu_frame_launches_no_bounce_kernel():
+    """A CPU frame takes the plain stages and leaves every counter at 0."""
     scene, cfg = media_path(32, 32, bounces=3)
     before = dict(bounce.launches)
-    got = integrator.render_tiled(scene, cfg, make_key(1), 1, 1)
+    img = integrator.render_tiled(scene, cfg, make_key(1), 1, 1)
     assert bounce.launches == before
-    monkeypatch.setattr(integrator, "_bounce_core", integrator._bounce_core_plain)
-    want = integrator.render_tiled(scene, cfg, make_key(1), 1, 1)
-    assert torch.equal(_bits(got), _bits(want))
+    assert 0.01 < float(img.mean()) < 10.0
 
 
 def test_bounce_wrappers_refuse_cpu_tensors():
-    scene, cfg, _ = _case("monu")
+    _, scene, cfg, _ = _case("monu")
     o, d = _rays(scene, cfg)
-    st = _start(o, d, cfg)
-    pk = integrator._pack_path(st, torch.zeros(o.shape[0]))
-    rec = integrator.find_nearest_world(scene, st["o"], st["d"], st["active"])
+    pk, active = integrator._first_path(cfg, o, d)
+    rec = integrator.find_nearest_world(scene, o, d, active)
     n = o.shape[0]
     u = torch.zeros(n)
     draws = bounce.Draws(u, torch.zeros(3, n), torch.zeros(3, n), u, torch.zeros(2, n),
@@ -193,10 +260,10 @@ def test_bounce_kernel_checks_take_the_staged_buffers(name, monkeypatch):
         assert bounce._cargs(b, -1).n == b.n
         bounce.hit_plain(b)
 
-    scene, cfg, lanes = _case(name)
+    _, scene, cfg, lanes = _case(name)
     o, d = _rays(scene, cfg)
-    integrator._bounce_core_staged(scene, cfg, _start(o, d, cfg), make_key(5), lanes,
-                                   stages=bounce.Stages(hit, bounce.nee_plain,
+    integrator._bounce_core(scene, cfg, *integrator._first_path(cfg, o, d), make_key(5),
+                            lanes, stages=bounce.Stages(hit, bounce.nee_plain,
                                                         bounce.continue_plain))
     assert seen == [-1]
 
@@ -209,11 +276,10 @@ def test_bounce_struct_is_the_kernel_struct():
     fields = re.findall(r"(\w+);", re.sub(r"//[^\n]*", "", body))
     assert fields == [f for f, _ in bounce.CArgs._fields_]
 
-    scene, cfg, _ = _case("det_kill")
+    _, scene, cfg, _ = _case("det_kill")
     o, d = _rays(scene, cfg)
-    st = _start(o, d, cfg)
-    pk = integrator._pack_path(st, torch.zeros(o.shape[0]))
-    rec = integrator.find_nearest_world(scene, st["o"], st["d"], st["active"])
+    pk, active = integrator._first_path(cfg, o, d)
+    rec = integrator.find_nearest_world(scene, o, d, active)
     n = o.shape[0]
     draws = bounce.Draws(*(torch.zeros(k, n).squeeze(0) for k in (1, 3, 3, 1, 2, 3)),
                          None, None, None, None, torch.zeros(6, 3, n), torch.zeros(6, 3, n))
@@ -248,5 +314,4 @@ def test_bounce_kernel_names_are_in_no_roofline_family():
         for shown in (name, f"(anonymous namespace)::{name}((anonymous namespace)::Args)",
                       f"_ZN12_GLOBAL__N_1{len(name)}{name}ENS_4ArgsE"):
             assert trace.family(shown) is None, shown
-    assert set(bounce.launches) == {"bounce_hit", "bounce_nee", "bounce_continue",
-                                    "bounce_plain"}
+    assert set(bounce.launches) == {"bounce_hit", "bounce_nee", "bounce_continue"}

@@ -5,7 +5,7 @@ CUDA tensors and holds it against the plain version on the same tensors:
 hit, vol, cell and in_vol identical, t within 1e-6, normals within 1e-5,
 lookup rows, the probes' results, the random streams' float bits and
 the path bounce's shading kernels' states and frames identical (held to
-the plain bounce, ``integrator._bounce_core_plain``), the lookup's backward per entry within
+their plain stages, ``kernels.bounce.PLAIN``), the lookup's backward per entry within
 1e-5 * (sum of |ct| over the entry's rows) + 1e-6 (both sides sum with
 atomics, in no fixed order), a whole relaxed-march gradient through
 the kernels within relative L2 1e-4 of one through the plain versions,
@@ -1180,21 +1180,11 @@ def test_rng_kernel_refuses_what_it_does_not_take(cuda):
         rng.threefry_uniform(make_key(0), (4, 3), cuda, (torch.arange(5, device=cuda), 9), 0)
 
 
-# ---- the path bounce's shading kernels (csrc/bounce.cu) against the plain
-# bounce (integrator._bounce_core_plain) on the same CUDA state, bit for bit
+# ---- the path bounce's shading kernels (csrc/bounce.cu) against their
+# plain stages (kernels.bounce.PLAIN) on the same CUDA state, bit for bit
 
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-
-def _same_bounce_state(a, b, what):
-    for k in ("o", "d", "tp", "rad", "sky_tp", "sky_d", "in_glass", "active", "in_light"):
-        assert (k in a) == (k in b), f"{what}: {k}"
-        if k in a:
-            xs = a[k] if isinstance(a[k], tuple) else (a[k],)
-            ys = b[k] if isinstance(b[k], tuple) else (b[k],)
-            for c, (x, y) in enumerate(zip(xs, ys)):
-                assert torch.equal(_bits(x), _bits(y)), f"{what}: {k}[{c}] differs"
 
 
 def _light_kill_media(width, height):
@@ -1244,56 +1234,50 @@ def _bounce_case(name, dev):
 @pytest.mark.parametrize("name", ["monu", "media", "media_kill", "lights", "threefry", "lanes",
                                   "det", "det_kill"])
 def test_bounce_kernels_are_the_plain_bounce(cuda, name):
-    """Every bounce of a 128x64 frame, one at a time: the three kernels, and
-    their plain versions between the same traversals, give the plain
-    bounce's state bit for bit (every material class, K3, each light type,
-    the light kill, threefry draws, a window of lanes, the deterministic
-    all-lights NEE with area samples, with and without the light kill)."""
+    """Every bounce of a 128x64 frame, one at a time: the three kernels give
+    the packed state of their plain versions between the same traversals
+    bit for bit (every material class, K3, each light type, the light
+    kill, threefry draws, a window of lanes, the deterministic all-lights
+    NEE with area samples, with and without the light kill)."""
     scene, cfg, lanes = _bounce_case(name, cuda)
     py, px = torch.meshgrid(torch.arange(cfg.height, dtype=torch.float32, device=cuda) + 0.5,
                             torch.arange(cfg.width, dtype=torch.float32, device=cuda) + 0.5,
                             indexing="ij")
     o, d = integrator.primary_rays(scene.camera, cfg.width, cfg.height, px.reshape(-1),
                                    py.reshape(-1))
-    n = o.shape[0]
-    zero3 = tuple(torch.zeros(n, device=cuda) for _ in range(3))
-    st = dict(o=integrator.cpack(o), d=integrator.cpack(d),
-              tp=tuple(torch.ones(n, device=cuda) for _ in range(3)), rad=zero3,
-              in_glass=torch.zeros(n, dtype=torch.bool, device=cuda),
-              active=torch.ones(n, dtype=torch.bool, device=cuda), sky_tp=zero3,
-              sky_d=integrator.cpack(d))
-    if cfg.detect_light_kill:
-        st["in_light"] = torch.zeros(n, dtype=torch.bool, device=cuda)
+    pk, active = integrator._first_path(cfg, o, d)
     before = dict(bounce_kernel.launches)
     marched = traverse.launches["exit_march"]
     bounces = 0
     for depth in range(cfg.max_bounces + 1):
-        if not bool(st["active"].any()):
+        if not bool(active.any()):
             break
         bounces += 1
         bkey = fold_in(make_key(7), depth)
-        want = integrator._bounce_core_plain(scene, cfg, st, bkey, lanes)
-        got = integrator._bounce_core(scene, cfg, st, bkey, lanes)
-        _same_bounce_state(got, want, f"{name} bounce {depth}")
-        staged = integrator._bounce_core_staged(scene, cfg, st, bkey, lanes,
-                                                stages=bounce_kernel.PLAIN)
-        _same_bounce_state(staged, want, f"{name} bounce {depth}, plain stages")
-        st = want
+        want = pk.clone()
+        want_active = integrator._bounce_core(scene, cfg, want, active, bkey, lanes,
+                                              stages=bounce_kernel.PLAIN)
+        active = integrator._bounce_core(scene, cfg, pk, active, bkey, lanes)
+        assert torch.equal(_bits(pk), _bits(want)), f"{name} bounce {depth}"
+        assert torch.equal(active, want_active), f"{name} bounce {depth}: active"
     moved = {k: bounce_kernel.launches[k] - before[k] for k in before}
     assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] == bounces
-    assert moved["bounce_plain"] == 0
     if name.startswith(("media", "det")):
         assert traverse.launches["exit_march"] > marched
     if name.endswith("kill"):
-        assert bool(st["in_light"].any())
+        assert bool((pk[bounce_kernel.R_LK] > 0.5).any())
 
 
 @contextlib.contextmanager
 def _plain_bounce():
-    """The plain bounce swapped in for the kernels' (the traversals, the
-    lookups and the draws keep their kernels)."""
+    """The bounce's plain stages swapped in for its kernels (the
+    traversals, the lookups and the draws keep their kernels)."""
     kept = integrator._bounce_core
-    integrator._bounce_core = integrator._bounce_core_plain
+
+    def plain(*args, **kwargs):
+        return kept(*args, **kwargs, stages=bounce_kernel.PLAIN)
+
+    integrator._bounce_core = plain
     try:
         yield
     finally:
@@ -1301,7 +1285,7 @@ def _plain_bounce():
 
 
 def _bounce_frame(run):
-    """run() through the bounce kernels and through the plain bounce, bit
+    """run() through the bounce kernels and through their plain stages, bit
     for bit -> (the image, the bounce counters' moves)."""
     before = dict(bounce_kernel.launches)
     got = run()
@@ -1355,7 +1339,6 @@ def test_bounce_kernel_frames_are_the_plain_frames(cuda, frame):
                                                                    1))
     assert bool(torch.isfinite(img).all()) and 0.01 < float(img.mean()) < 10.0
     assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] > 0
-    assert moved["bounce_plain"] == 0
     if frame == "monu_compact4":
         assert moved["bounce_hit"] > cfg.max_bounces + 1  # a launch a traced chunk
 
@@ -1363,11 +1346,10 @@ def test_bounce_kernel_frames_are_the_plain_frames(cuda, frame):
 def test_deterministic_lights_frame_is_the_plain_frame(cuda):
     """cfg.deterministic_lights on the monu-like 128x64 path frame with every
     light type: the kernels shade each bounce (one K2 call over every
-    light's segments), bit for bit, none on the plain ops."""
+    light's segments), bit for bit."""
     scene, cfg = monu_like_path(128, 64, gridsize=32, bounces=2)
     cfg = dataclasses.replace(cfg, deterministic_lights=True)
     scene = _all_lights(scene).to(cuda)
     img, moved = _bounce_frame(lambda: integrator.render_tiled(scene, cfg, make_key(0), 1, 1))
     assert moved["bounce_hit"] == moved["bounce_nee"] == moved["bounce_continue"] > 0
-    assert moved["bounce_plain"] == 0
     assert 0.01 < float(img.mean()) < 10.0

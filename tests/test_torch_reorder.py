@@ -118,6 +118,17 @@ def test_morton_key_and_permutation_match_jax():
         integrator._reorder_perm(tpk, torch.from_numpy(lo), torch.from_numpy(span)).numpy())
 
 
+def _unpack_path(pk):
+    """[21 or 22, n] -> (the state dict, each ray's first lane): the packed
+    rows back as component tuples and bool flags."""
+    c = pk.unbind(0)
+    st = dict(o=c[0:3], d=c[3:6], tp=c[6:9], rad=c[9:12], in_glass=c[12] > 0.5,
+              active=c[integrator._PK_ACTIVE] > 0.5, sky_tp=c[15:18], sky_d=c[18:21])
+    if len(c) > integrator._PK_ROWS:
+        st["in_light"] = c[integrator._PK_ROWS] > 0.5
+    return st, c[integrator._PK_PIX]
+
+
 def test_pack_path_round_trip():
     rng = np.random.default_rng(4)
     n = 257
@@ -131,7 +142,7 @@ def test_pack_path_round_trip():
     pix = torch.arange(n, dtype=torch.float32)
     pk = integrator._pack_path(st, pix)
     assert pk.shape == (integrator._PK_ROWS, n)
-    back, bpix = integrator._unpack_path(pk)
+    back, bpix = _unpack_path(pk)
     assert torch.equal(bpix, pix)
     for k, v in st.items():
         for a, b in zip(v if isinstance(v, tuple) else (v,),

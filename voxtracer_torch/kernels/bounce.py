@@ -1,23 +1,22 @@
-"""The path bounce's shading on the card: three launches of csrc/bounce.cu
-a bounce, in place of the plain ops of
-``render.integrator._bounce_core_plain``.
+"""The path bounce's shading in three stages, in two sets: the kernels of
+csrc/bounce.cu (``KERNELS``) and their plain versions (``PLAIN``).
 
 A bounce's buffers live in one ``Bounce``: the packed path state (the
 integrator's ``_pack_path`` rows; a chunk view of a wider wavefront
-works), the nearest hit, the material rows, the draws, the lights, and
-what the stages hand each other and the traversals between them.  The
-integrator (``_bounce_core_staged``) runs
+works), shaded in place, the nearest hit, the material rows, the draws,
+the lights, and what the stages hand each other and the traversals
+between them.  The integrator's one bounce (``_bounce_core``) runs
 
     K1, K4 -> hit -> K3 (where a ray marches) -> nee -> K2 -> continue
 
-and ``hit``, ``nee`` and ``continue_`` launch one kernel each on CUDA
-tensors and refuse any other device.  ``hit_plain``, ``nee_plain`` and
-``continue_plain`` do the same by torch ops on any device: each kernel's
-plain version, and with them the staged bounce equals
-``_bounce_core_plain`` bit for bit on the CPU (tests/test_torch_bounce.py).
-``launches`` counts the kernels; ``bounce_plain`` would count CUDA
-bounces on the plain ops, and reads 0: every branch of the bounce (both
-NEE estimators, the light kill, the exit march) has its kernel path."""
+with ``KERNELS`` on a CUDA state and ``PLAIN`` on any other.  ``hit``,
+``nee`` and ``continue_`` launch one kernel each on CUDA tensors and
+refuse any other device; ``hit_plain``, ``nee_plain`` and
+``continue_plain`` do the same by torch ops on any device.  The plain
+stages are the CPU's bounce, held to the JAX package's
+(tests/test_torch_bounce.py), and the oracle the card holds the kernels
+to bit for bit (tests/test_torch_gpu.py).  ``launches`` counts the
+kernels."""
 
 from __future__ import annotations
 
@@ -33,7 +32,7 @@ from voxtracer_torch.core.types import (EMISSIVE, GLASS, MAT_NONE, METAL_HIGH, M
 from voxtracer_torch.kernels import build
 from voxtracer_torch.kernels.dda import EXIT_GLASS, EXIT_SMOKE
 
-launches = {"bounce_hit": 0, "bounce_nee": 0, "bounce_continue": 0, "bounce_plain": 0}
+launches = {"bounce_hit": 0, "bounce_nee": 0, "bounce_continue": 0}
 
 F32 = torch.float32
 BIG = 1e34
@@ -127,16 +126,6 @@ class Bounce:
         self.exit = None  # K3's (in_vol, t, nx, ny, nz) where a ray marched
         self.occ = self.lk_occ = None  # K2's
         self.c = None
-
-    def state(self) -> dict:
-        """The bounce's result as the integrator's state dict: the packed
-        rows as component tuples, the flags as bool rows, and ``pk``."""
-        c = self.pk.unbind(0)
-        st = dict(o=c[0:3], d=c[3:6], tp=c[6:9], rad=c[9:12], in_glass=self.out_in_glass,
-                  active=self.out_active, sky_tp=c[15:18], sky_d=c[18:21], pk=self.pk)
-        if self.has_lk:
-            st["in_light"] = self.out_in_light
-        return st
 
 
 # --------------------------------------------------------------------------
@@ -274,8 +263,8 @@ def continue_(b: Bounce) -> None:
 
 
 # --------------------------------------------------------------------------
-# The plain versions: the same stages by torch ops, as
-# integrator._bounce_core_plain computes them
+# The plain versions: each stage by torch ops; together they compute the
+# JAX package's bounce (voxtracer/render/integrator.py _bounce_core)
 # --------------------------------------------------------------------------
 
 def _dot(a, b):
